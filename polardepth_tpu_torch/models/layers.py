@@ -1,0 +1,101 @@
+"""Convolutional building blocks (polardepth_tpu/models/layers.py).
+
+Modules compute on (B, C, H, W) tensors.  Submodules carry the names the JAX
+package's flax modules give their parameters (``Conv_0``, ``BatchNorm_0``,
+``TorchConv_0``, ...), so that models/convert.py maps a flax parameter path to
+a ``state_dict`` key by joining it with dots.
+
+torch's ``nn.Conv2d`` default initialisation is the one the JAX package's
+``TorchConv`` reproduces, and ``nn.BatchNorm2d`` has the semantics of its
+``_batch_norm`` (eps 1e-5, momentum 0.1 in torch's convention, running
+statistics in eval mode).  The JAX package's ``_DenseExpandConv`` executes a
+grouped conv as a block-diagonal dense one, a TPU execution plan; here the
+same parameters run as a ``groups=2`` conv.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+import torch.nn.functional as F
+
+
+def batch_norm(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class TorchConv(nn.Module):
+    """Zero-padded conv, grouped where groups > 1."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel_size, stride, padding,
+                                groups=groups)
+
+    def forward(self, x):
+        return self.Conv_0(x)
+
+
+class ReflectConv(nn.Module):
+    """Reflection pad + valid 3x3 conv (reference Conv3x3,
+    layers.py:345-380)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, cout, 3, padding=1,
+                                padding_mode="reflect")
+
+    def forward(self, x):
+        return self.Conv_0(x)
+
+
+class ConvBlockELU(nn.Module):
+    """ReflectConv3x3 + ELU, the decoder block (layers.py:329-342)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.ReflectConv_0 = ReflectConv(cin, cout)
+
+    def forward(self, x):
+        return F.elu(self.ReflectConv_0(x))
+
+
+class ConvBNReLUDrop(nn.Module):
+    """Conv -> BN -> ReLU -> [pool] -> Dropout, the pre-encoder ConvBlock
+    (reference pre_encoders.py:8-34).  downsampling: 'none' | 'maxpool' |
+    'stride2' (a stride of 2 in the conv)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int,
+                 downsampling: str = "none", padding: int = 0,
+                 dropout_rate: float = 0.1, groups: int = 1):
+        super().__init__()
+        if downsampling not in ("none", "maxpool", "stride2"):
+            raise ValueError(f"unknown downsampling {downsampling!r}")
+        self.downsampling = downsampling
+        stride = 2 if downsampling == "stride2" else 1
+        self.TorchConv_0 = TorchConv(cin, cout, kernel_size, stride, padding,
+                                     groups)
+        self.BatchNorm_0 = batch_norm(cout)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x):
+        x = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))
+        if self.downsampling == "maxpool":
+            x = F.max_pool2d(x, 2, 2)
+        return self.dropout(x)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 ConvBNReLUDrop blocks and an additive skip
+    (reference pre_encoders.py:36-46)."""
+
+    def __init__(self, channels: int, dropout_rate: float = 0.1,
+                 groups: int = 1):
+        super().__init__()
+        self.ConvBNReLUDrop_0 = ConvBNReLUDrop(channels, channels, 3, "none",
+                                               1, dropout_rate, groups)
+        self.ConvBNReLUDrop_1 = ConvBNReLUDrop(channels, channels, 3, "none",
+                                               1, dropout_rate, groups)
+
+    def forward(self, x):
+        return self.ConvBNReLUDrop_1(self.ConvBNReLUDrop_0(x)) + x

@@ -1,0 +1,58 @@
+"""The RGB encoder: torchvision's resnet18 cut after layer2
+(polardepth_tpu/models/resnet.py:74-94; reference resnet_encoder.py:809-822).
+"""
+
+from __future__ import annotations
+
+from torch import nn
+import torch.nn.functional as F
+
+from polardepth_tpu_torch.models.layers import batch_norm
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int, padding: int):
+    return nn.Conv2d(cin, cout, kernel, stride, padding, bias=False)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = _conv(cin, cout, 3, stride, 1)
+        self.BatchNorm_0 = batch_norm(cout)
+        self.Conv_1 = _conv(cout, cout, 3, 1, 1)
+        self.BatchNorm_1 = batch_norm(cout)
+        self.downsample = stride != 1 or cin != cout
+        if self.downsample:
+            self.Conv_2 = _conv(cin, cout, 1, stride, 0)
+            self.BatchNorm_2 = batch_norm(cout)
+
+    def forward(self, x):
+        out = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        out = self.BatchNorm_1(self.Conv_1(out))
+        identity = self.BatchNorm_2(self.Conv_2(x)) if self.downsample else x
+        return F.relu(out + identity)
+
+
+class ShallowResNet18Stem(nn.Module):
+    """(B, in_ch, H, W) in [0, 1] -> [f0 64@H/2, f1 64@H/4, f2 128@H/8].
+
+    The input is standardised with (x - 0.45) / 0.225 here, as in the
+    reference.  in_ch is 3, or 12 in the 12-channel mode.
+    """
+
+    def __init__(self, in_ch: int = 3):
+        super().__init__()
+        self.Conv_0 = _conv(in_ch, 64, 7, 2, 3)
+        self.BatchNorm_0 = batch_norm(64)
+        self.BasicBlock_0 = BasicBlock(64, 64)
+        self.BasicBlock_1 = BasicBlock(64, 64)
+        self.BasicBlock_2 = BasicBlock(64, 128, 2)
+        self.BasicBlock_3 = BasicBlock(128, 128)
+
+    def forward(self, x):
+        x = (x - 0.45) / 0.225
+        f0 = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        f1 = F.max_pool2d(f0, 3, 2, 1)
+        f1 = self.BasicBlock_1(self.BasicBlock_0(f1))
+        f2 = self.BasicBlock_3(self.BasicBlock_2(f1))
+        return [f0, f1, f2]

@@ -122,6 +122,10 @@ def pytest_configure(config):
         "markers",
         "slow: expensive end-to-end/convergence test, skipped by default; "
         "run with --runslow or POLARDEPTH_SLOW_TESTS=1 (VERDICT r3 #7)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips itself where there is none")
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,109 @@
+"""The port stands alone: it and chip_smoke.py import nothing of JAX, flax,
+ml_dtypes, orbax or the JAX package, and chip_smoke.py's serving and result
+phases run through on the CPU at a tiny size."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "orbax", "polardepth_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "polardepth_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_no_forbidden_import_in_the_source():
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in names if n.split(".")[0] in FORBIDDEN]
+    assert len(_port_files()) > 10
+    assert not offenders, offenders
+
+
+def test_port_runs_with_jax_unimportable():
+    """A fresh interpreter in which importing any of FORBIDDEN fails imports
+    every module of the port and chip_smoke.py, and serves one request of
+    the published model on the CPU."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "polardepth_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(ROOT)!r})
+        for name in {modules!r} + ["chip_smoke"]:
+            importlib.import_module(name)
+        import numpy as np, torch
+        import chip_smoke
+        from polardepth_tpu_torch.config import PUBLISHED
+        from polardepth_tpu_torch.train.trainer import Predictor
+        cfg = PUBLISHED.replace(height=64, width=96)
+        weights = chip_smoke.seeded_state_dict(cfg, 0)
+        batch = chip_smoke.random_batch(np.random.default_rng(0), 1, cfg)
+        depth = Predictor(cfg, weights, device="cpu").predict(batch)
+        assert depth.shape == (1, 64, 96, 1) and np.isfinite(depth).all()
+        leaked = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().startswith("OK")
+
+
+def test_chip_smoke_serve_and_result_phases_on_cpu():
+    """Phases 4 and 5 of chip_smoke.py with device="cpu" at 64x96: on the
+    CPU the wrapper takes the plain version, so the kernel counts no
+    launch, and the depth equals the plain-preprocess run exactly."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from polardepth_tpu_torch.config import PUBLISHED
+    cfg = PUBLISHED.replace(height=64, width=96)
+    s = chip_smoke.serve("cpu", cfg, batch=1, requests=2, seed=0)
+    assert s["launches"] == {"polar_preprocess": 0}
+    assert s["err_plain"] == 0.0 and s["err_cpu"] == 0.0
+    assert cfg.min_depth <= s["depth_range"][0] <= s["depth_range"][1] \
+        <= cfg.max_depth
+    assert s["ms_per_request"] > 0
+    line = chip_smoke.result_line("cpu")
+    assert line == {"ok": True, "device": {"platform": "cpu", "kind": "cpu",
+                                           "count": 1}}
+
+
+def test_chip_smoke_fails_without_card_or_package(tmp_path):
+    """No result line and a non-zero exit: here, where there is no card,
+    and from a directory that holds chip_smoke.py alone."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    runs = [(alone, tmp_path)]
+    if not torch.cuda.is_available():
+        runs.append((ROOT / "chip_smoke.py", ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for script, cwd in runs:
+        out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                             text=True, timeout=300, cwd=cwd, env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
