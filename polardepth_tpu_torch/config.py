@@ -1,13 +1,14 @@
-"""The configuration fields that the serving path reads.
+"""The configuration fields that the serving and training paths read.
 
 A copy of part of the JAX package's ``Config`` dataclass
-(polardepth_tpu/config.py:18-281) and of its named configurations
-(polardepth_tpu/config.py:290-298).  The port keeps its own copy so that it
-imports nothing of the JAX package.  Field names and defaults are those of the
-reference's flags (manydepth/options.py); the defaults reproduce the published
-run, train_supervised_GT.sh.  Fields of paths this package does not port yet
-(self-supervised, teacher-student, DPT, training and its supervision and
-initialisation switches) are left out and come with their slice.
+(polardepth_tpu/config.py:18-281, validation :272-273) and of its named
+configurations (polardepth_tpu/config.py:290-298).  The port keeps its own
+copy so that it imports nothing of the JAX package.  Field names and defaults
+are those of the reference's flags (manydepth/options.py); the defaults
+reproduce the published run, train_supervised_GT.sh.  Fields of paths this
+package does not port yet (residual poses, teacher-student, DPT,
+initialisation switches, TPU layout plans) are left out and come with their
+slice.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ class Config:
     min_depth: float = 0.1
     max_depth: float = 2.0
 
+    # temporal neighbours of the self-supervised path, frame 0 first
+    frame_ids: Sequence[int] = (0, -1, 1)
+
     # model graph selection
+    depth_supervision: bool = True
+    depth_supervision_only: bool = True
+    supervise_pose: bool = False
     augment_xolp: bool = True
     augment_normals: bool = True
     # the depth encoder reads the four captures, each replicated to 3
@@ -36,11 +43,34 @@ class Config:
     # the XOLP and normals encoders run as one groups=2 stack at 128
     # channels; needs augment_xolp and augment_normals (ignored otherwise)
     fused_encoders: bool = True
+    # 50% per-sample horizontal flip in training (off for HAMMER, whose
+    # dataset hardwires do_flip=False)
+    random_flip: bool = False
 
-    # serving
+    # losses
+    normals_loss_weight: float = 0.35
+    disparity_smoothness: float = 1e-3
+    no_ssim: bool = False
+    avg_reprojection: bool = False
+    disable_automasking: bool = False
+    v1_multiscale: bool = False
+    # grid_sample route of the reprojection warps (ops/warp.py): "auto" is
+    # the banded warp kernel, "flat4" / "patch" the plain gather forms
+    warp_impl: str = "auto"
+
+    # optimization
     batch_size: int = 12
+    learning_rate: float = 1e-4
+    num_epochs: int = 50
+    scheduler_step_size: int = 15    # StepLR: lr *= gamma every N epochs
+    scheduler_gamma: float = 0.1
+
     # flip-averaged prediction (Monodepth2 post-processing)
     post_process: bool = False
+
+    @property
+    def num_scales(self) -> int:
+        return len(self.scales)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -49,6 +79,9 @@ class Config:
         if self.height % 32 or self.width % 32:
             raise ValueError("height and width must be multiples of 32 "
                              f"(got {self.height}x{self.width})")
+        if self.depth_supervision_only and not self.depth_supervision:
+            raise ValueError(
+                "depth_supervision_only requires depth_supervision")
 
 
 # The published configuration (reference: train_supervised_GT.sh).

@@ -7,6 +7,10 @@ becomes a ``state_dict`` key by joining it with dots; conv kernels go from
 HWIO to OIHW, BatchNorm ``scale`` becomes ``weight`` and the statistics
 ``mean``/``var`` become ``running_mean``/``running_var``.
 
+The trees of the self-supervised model (train/selfsup.py:SelfSupModel) hold
+the depth net under ``mono`` and the pose net under ``pose_net`` (its
+``pose_encoder`` and ``pose``), and convert the same way.
+
 The two modality encoders come in two layouts: the reference's
 ``xolp_encoder`` + ``normals_encoder`` (what the JAX package's component
 exports hold, train/checkpoint.py:121 export_components) and the
@@ -29,8 +33,12 @@ _MODALITIES = ("xolp_encoder", "normals_encoder")
 def to_layout(tree: dict, fused_encoders: bool) -> dict:
     """A params or batch_stats tree in the requested encoder layout.  A tree
     that holds neither both modality encoders nor the fused stack is
-    returned as it is."""
+    returned as it is.  A self-supervised model's tree (``mono`` beside
+    ``pose_net``) has its depth net converted."""
     tree = dict(tree)
+    if "mono" in tree:
+        tree["mono"] = to_layout(tree["mono"], fused_encoders)
+        return tree
     if fused_encoders and all(m in tree for m in _MODALITIES):
         tree["fused_encoders"] = fuse_modality_params(
             tree.pop("xolp_encoder"),

@@ -6,21 +6,74 @@ package's flax modules give their parameters (``Conv_0``, ``BatchNorm_0``,
 a ``state_dict`` key by joining it with dots.
 
 torch's ``nn.Conv2d`` default initialisation is the one the JAX package's
-``TorchConv`` reproduces, and ``nn.BatchNorm2d`` has the semantics of its
-``_batch_norm`` (eps 1e-5, momentum 0.1 in torch's convention, running
-statistics in eval mode).  The JAX package's ``_DenseExpandConv`` executes a
-grouped conv as a block-diagonal dense one, a TPU execution plan; here the
-same parameters run as a ``groups=2`` conv.
+``TorchConv`` reproduces.  ``BatchNorm`` has the semantics of its
+``_batch_norm`` (flax ``BatchNorm``, eps 1e-5, momentum 0.1 in torch's
+convention) in both modes, and ``Dropout`` those of flax's ``Dropout``.  The
+JAX package's ``_DenseExpandConv`` executes a grouped conv as a
+block-diagonal dense one, a TPU execution plan; here the same parameters run
+as a ``groups=2`` conv.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 import torch.nn.functional as F
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running statistics as
+    flax's ``BatchNorm(momentum=0.9)`` does (models/layers.py:183-192 of the
+    JAX package): with the *biased* batch variance, where torch's own
+    module takes the unbiased one.  The normalisation itself is the same in
+    both (biased batch variance in train mode, running statistics in eval
+    mode)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                             self.eps)
+
+
+def batch_norm(channels: int) -> BatchNorm:
+    return BatchNorm(channels, eps=1e-5, momentum=0.1)
+
+
+class Dropout(nn.Module):
+    """flax ``Dropout``: in train mode each element is kept with probability
+    1 - rate and scaled by 1 / (1 - rate).  The bits come from
+    ``self.generator`` (``set_dropout_generator``), never from torch's
+    global stream; a train-mode call with a nonzero rate and no generator
+    raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator "
+                               "(set_dropout_generator)")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Hand every ``Dropout`` of ``model`` the generator of its draws."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class TorchConv(nn.Module):
@@ -76,7 +129,7 @@ class ConvBNReLUDrop(nn.Module):
         self.TorchConv_0 = TorchConv(cin, cout, kernel_size, stride, padding,
                                      groups)
         self.BatchNorm_0 = batch_norm(cout)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x):
         x = F.relu(self.BatchNorm_0(self.TorchConv_0(x)))

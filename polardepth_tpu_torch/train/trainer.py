@@ -1,9 +1,10 @@
-"""Serving: the inference step and ``Predictor``
-(polardepth_tpu/train/trainer.py:53-214, 394-396).
+"""The published supervised train step, the inference step and
+``Predictor`` (polardepth_tpu/train/trainer.py:53-214, 394-396).
 
-The JAX package's ``make_infer_step`` is a pure function of (state, batch);
-here the model holds its parameters and the step runs it in eval mode (BN on
-running statistics, dropout off) under ``torch.inference_mode``.
+The JAX package's steps are pure functions of (state, batch); here the model
+holds its parameters.  The train step runs it in train mode (BN on batch
+statistics, dropout from an explicit generator) and updates the state in
+place; the infer step runs it in eval mode under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -12,10 +13,16 @@ import numpy as np
 import torch
 
 from polardepth_tpu_torch.config import Config
+from polardepth_tpu_torch.data.augment import (
+    color_jitter_apply, color_jitter_factors, draw_flip,
+    random_horizontal_flip)
+from polardepth_tpu_torch.models.layers import set_dropout_generator
 from polardepth_tpu_torch.models.network import PolarDepthNet
 from polardepth_tpu_torch.ops.depth import disp_to_depth
 from polardepth_tpu_torch.train.losses import (
-    preprocess_batch, twelve_channel_input)
+    preprocess_batch, supervised_losses, twelve_channel_input)
+from polardepth_tpu_torch.train.selfsup import model_device, to_device
+from polardepth_tpu_torch.train.state import TrainState, apply_gradients
 
 
 def build_model(cfg: Config) -> PolarDepthNet:
@@ -42,6 +49,57 @@ def _encoder_input(cfg: Config, pb: dict) -> torch.Tensor:
     if cfg.enable_12channels:
         return twelve_channel_input(pb["pol"])
     return pb["color"]
+
+
+def _jittered_encoder_input(cfg: Config, pb: dict,
+                            factors: dict) -> torch.Tensor:
+    """The depth encoder's input with the colour jitter: the RGB frame, or
+    in the 12-channel mode each of the four 3-channel capture groups with
+    the same factors (train/losses.py:85-95 of the JAX package)."""
+    x = _encoder_input(cfg, pb)
+    if not cfg.enable_12channels:
+        return color_jitter_apply(x, factors)
+    return torch.cat([color_jitter_apply(x[..., 3 * i:3 * i + 3], factors)
+                      for i in range(4)], dim=-1)
+
+
+def make_train_step(model: PolarDepthNet, cfg: Config):
+    """The published supervised train step on the device of model
+    (polardepth_tpu/train/trainer.py:85-115).
+
+    step(state, batch, generator, *, jitter=None, flip=None) -> logs: batch
+    holds color, pol, depth (uint8 or float, any resolution) and K;
+    generator (on the model's device) draws the jitter factors, the flip
+    (with random_flip) and dropout unless given.  One Adam step updates
+    state in place; the gradients stay on the parameters.  The logs are
+    detached tensors on the device.
+    """
+    cfg.validate()
+    needs_pol = cfg.augment_xolp or cfg.augment_normals
+
+    def step(state: TrainState, batch: dict,
+             generator: torch.Generator | None = None, *,
+             jitter: dict | None = None,
+             flip: torch.Tensor | None = None) -> dict:
+        batch = to_device(batch, model_device(model))
+        model.train()
+        set_dropout_generator(model, generator)
+        pb = preprocess_batch(batch, cfg)
+        b = pb["color"].shape[0]
+        if jitter is None:
+            jitter = color_jitter_factors(generator, b)
+        if cfg.random_flip:
+            pb = random_horizontal_flip(
+                pb, draw_flip(generator, b) if flip is None else flip)
+        state.optimizer.zero_grad(set_to_none=True)
+        outputs = model(_jittered_encoder_input(cfg, pb, jitter),
+                        pol=pb["pol"] if needs_pol else None)
+        loss, logs = supervised_losses(cfg, outputs, pb)
+        loss.backward()
+        apply_gradients(state)
+        return {k: v.detach() for k, v in logs.items()}
+
+    return step
 
 
 def _flip_average_disp(disp: torch.Tensor,

@@ -9,6 +9,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -83,7 +84,8 @@ def test_chip_smoke_serve_and_result_phases_on_cpu():
     from polardepth_tpu_torch.config import PUBLISHED
     cfg = PUBLISHED.replace(height=64, width=96)
     s = chip_smoke.serve("cpu", cfg, batch=1, requests=2, seed=0)
-    assert s["launches"] == {"polar_preprocess": 0}
+    assert s["launches"] == {"polar_preprocess": 0, "band_warp_fwd": 0,
+                             "band_warp_bwd": 0}
     assert s["err_plain"] == 0.0 and s["err_cpu"] == 0.0
     assert cfg.min_depth <= s["depth_range"][0] <= s["depth_range"][1] \
         <= cfg.max_depth
@@ -91,6 +93,27 @@ def test_chip_smoke_serve_and_result_phases_on_cpu():
     line = chip_smoke.result_line("cpu")
     assert line == {"ok": True, "device": {"platform": "cpu", "kind": "cpu",
                                            "count": 1}}
+
+
+def test_chip_smoke_training_phases_on_cpu():
+    """Phases 6 and 7 of chip_smoke.py with device="cpu" at batch 2, 64x96:
+    finite losses, no kernel launch on the CPU, and the plain-warp step
+    equal to the main one."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from polardepth_tpu_torch.config import PUBLISHED
+    cfg = PUBLISHED.replace(height=64, width=96)
+    ss = chip_smoke.train_selfsup(
+        "cpu", cfg.replace(depth_supervision_only=False), 2, 1, 0)
+    assert len(ss["losses"]) == 2 and np.isfinite(ss["losses"]).all()
+    assert set(ss["launches"].values()) == {0}
+    assert ss["loss_rel_err"] == 0.0 and ss["grad_err_over_limit"] <= 1.0
+    sv = chip_smoke.train_supervised("cpu", cfg, 2, 1, 0)
+    assert len(sv["losses"]) == 2 and np.isfinite(sv["losses"]).all()
+    assert sv["ms_per_step"] > 0 and set(sv["launches"].values()) == {0}
 
 
 def test_chip_smoke_fails_without_card_or_package(tmp_path):

@@ -2,16 +2,18 @@
 
 These tests need a CUDA card and skip without one; they import no JAX, so
 they also run on the card's machine:
-``python -m pytest tests/test_torch_kernels.py -m gpu -q``.  Limits are the
-JAX package's own for the TPU kernel (tests/test_pallas_preprocess.py): 2e-6
-on XOLP with phi compared modulo pi, 5e-5 on the priors.
+``python -m pytest tests/test_torch_kernels.py -m gpu -q``.  Limits of the
+preprocess kernel are the JAX package's own for the TPU kernel
+(tests/test_pallas_preprocess.py): 2e-6 on XOLP with phi compared modulo pi,
+5e-5 on the priors.  The band-warp kernels K2 and K3: 1e-6 absolute on the
+forward (images in [0, 1]), 1e-5 of each one's max abs on dix and diy.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from polardepth_tpu_torch.ops import build
+from polardepth_tpu_torch.ops import band_warp, build
 from polardepth_tpu_torch.ops.polar_preprocess import (
     fused_polar_preprocess, polar_preprocess_plain)
 
@@ -66,3 +68,87 @@ def test_polar_preprocess_wrapper_checks_its_input(card):
         fused_polar_preprocess(torch.zeros(4, 8, 4, device=card)[:, ::2])
     xo, pr = fused_polar_preprocess(torch.zeros(0, 4, device=card))
     assert xo.shape == (0, 2) and pr.shape == (0, 9)
+
+
+WARP_TOL = 1e-6
+WARP_GRAD_RTOL = 1e-5
+
+
+def _warp_inputs(card, c, kind, b=2, h=64, w=96):
+    """img (B, H, W, C), grid and cotangent; "parallax" keeps rows inside
+    the band, "shear" leaves it, "edges" samples integer and border
+    coordinates."""
+    gen = torch.Generator().manual_seed(c)
+    img = torch.rand(b, h, w, c, generator=gen)
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, h), torch.linspace(-1, 1, w),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).expand(b, h, w, 2).clone()
+    if kind == "parallax":
+        grid += 0.05 * (torch.rand(b, h, w, 2, generator=gen) - 0.5)
+    elif kind == "shear":
+        grid[..., 1] += 0.9 * grid[..., 0]
+    else:
+        grid[..., 0] = torch.where(grid[..., 0] > 0.5, 1.0, grid[..., 0] * 1.5)
+    g = torch.randn(b, h, w, c, generator=gen)
+    return img.to(card), grid.to(card), g.to(card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("kind", ["parallax", "shear", "edges"])
+def test_band_warp_kernels_match_plain_versions(card, c, kind):
+    img, grid, g = _warp_inputs(card, c, kind)
+    geo = band_warp.band_geometry(64, 96, c, 64)
+    ix, iy, _ = band_warp.prep(img.shape, grid, geo["k"], geo["step"], True,
+                               geo["wp"])
+    before = dict(build.launch_counts)
+    out = band_warp.band_warp_fwd(img, ix, iy)
+    dix, diy = band_warp.band_warp_bwd(img, ix, iy, g)
+    torch.cuda.synchronize()
+    assert build.launch_counts["band_warp_fwd"] == before["band_warp_fwd"] + 1
+    assert build.launch_counts["band_warp_bwd"] == before["band_warp_bwd"] + 1
+    out_p = band_warp.band_warp_fwd_plain(img, ix, iy)
+    dix_p, diy_p = band_warp.band_warp_bwd_plain(img, ix, iy, g)
+    assert float((out - out_p).abs().max()) <= WARP_TOL
+    assert float((dix - dix_p).abs().max()) <= \
+        WARP_GRAD_RTOL * float(dix_p.abs().max())
+    assert float((diy - diy_p).abs().max()) <= \
+        WARP_GRAD_RTOL * float(diy_p.abs().max())
+
+
+@pytest.mark.gpu
+def test_band_warp_autograd_launches_both_kernels(card):
+    img, grid, g = _warp_inputs(card, 3, "parallax")
+    grid.requires_grad_(True)
+    before = dict(build.launch_counts)
+    out = band_warp.band_warp(img, grid)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert build.launch_counts["band_warp_fwd"] == before["band_warp_fwd"] + 1
+    assert build.launch_counts["band_warp_bwd"] == before["band_warp_bwd"] + 1
+    ref = grid.detach().cpu().requires_grad_(True)
+    out_cpu = band_warp.band_warp(img.cpu(), ref)
+    (out_cpu * g.cpu()).sum().backward()
+    assert float((out.detach().cpu() - out_cpu.detach()).abs().max()) <= \
+        WARP_TOL
+    gmax = float(ref.grad.abs().max())
+    assert float((grid.grad.cpu() - ref.grad).abs().max()) <= 1e-4 * gmax
+
+
+@pytest.mark.gpu
+def test_band_warp_wrappers_check_their_inputs(card):
+    img = torch.rand(1, 8, 8, 3, device=card)
+    ix = torch.rand(1, 8, 8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        band_warp.band_warp_fwd(img.double(), ix, ix)
+    with pytest.raises(ValueError, match="several devices"):
+        band_warp.band_warp_fwd(img, ix.cpu(), ix)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_warp.band_warp_fwd(img.permute(0, 2, 1, 3), ix, ix)
+    with pytest.raises(ValueError, match="contiguous"):
+        band_warp.band_warp_bwd(img, ix, ix,
+                                torch.rand(1, 8, 8, 6, device=card)[..., ::2])
+    out = band_warp.band_warp_fwd(torch.rand(0, 8, 8, 3, device=card),
+                                  torch.rand(0, 8, 8, device=card),
+                                  torch.rand(0, 8, 8, device=card))
+    assert out.shape == (0, 8, 8, 3)
