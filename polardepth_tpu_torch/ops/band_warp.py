@@ -140,8 +140,9 @@ def band_warp_bwd(img, ix, iy, g):
 
 
 class _BandWarp(torch.autograd.Function):
-    """K2 forward, K3 backward; the image gets no gradient (it is data on
-    every path that warps, as in the JAX package's custom VJP)."""
+    """K2 forward, K3 backward.  The image is data, as in the JAX package's
+    custom VJP (ops/pallas/band_warp.py:31-36); ``band_warp`` refuses an
+    image that requires a gradient rather than give it none."""
 
     @staticmethod
     def forward(ctx, img, ix, iy):
@@ -227,8 +228,15 @@ def band_warp(img: torch.Tensor, grid: torch.Tensor, *, k: int = 32,
     band; beyond it the source row is clamped to the band's edge.  hx > 0
     also clamps each 128-column output tile's source columns into an
     hx-wide window, and rp > 1 shares one band between rp output rows, as
-    in the JAX package.  Differentiable with respect to grid only.
+    in the JAX package.  Differentiable with respect to grid only: an image
+    that requires a gradient (with grad mode on) raises.
     """
+    if img.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "band_warp: the image requires a gradient, but the band-warp "
+            "kernels give none to the image (only to the grid); the "
+            "image-gradient kernel is ROADMAP Queue 2 item c.  Warp data, or "
+            "use grid_sample's 'flat4' or 'patch' route.")
     _, h, w, c = img.shape
     geo = band_geometry(h, w, c, grid.shape[1], k, hx, rp)
     ix, iy, _ = prep(img.shape, grid, geo["k"], geo["step"], align_corners,

@@ -202,3 +202,31 @@ def test_wrappers_check_their_inputs_on_the_cpu():
         tband.band_warp_fwd(img, ix[0], ix[0])
     with pytest.raises(ValueError, match="cotangent"):
         tband.band_warp_bwd(img, ix, ix, torch.zeros(1, 4, 4, 1))
+
+
+def test_band_warp_refuses_an_image_that_requires_a_gradient():
+    """The kernels give the image no gradient, so band_warp refuses an image
+    that needs one rather than drop it (ROADMAP Queue 2 item c)."""
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.uniform(0, 1, (1, 16, 24, 3)).astype(
+        np.float32)).requires_grad_(True)
+    grid = torch.from_numpy(_grid("parallax", 1, 16, 24, rng)).requires_grad_(
+        True)
+    with pytest.raises(RuntimeError, match="image requires a gradient"):
+        tband.band_warp(img, grid, k=8)
+    with pytest.raises(RuntimeError, match="Queue 2 item c"):
+        twarp.grid_sample(img, grid, impl="pallas_fast")
+    with torch.no_grad():          # no gradient is asked for: nothing lost
+        assert tband.band_warp(img, grid, k=8).shape == (1, 16, 24, 3)
+
+
+def test_band_warp_on_a_data_image_passes_the_grid_gradient():
+    """The same call on a data image gives the grid K3's gradient, equal to
+    the JAX package's in interpret mode."""
+    rng = np.random.default_rng(4)
+    img = rng.uniform(0, 1, (1, 16, 24, 3)).astype(np.float32)
+    grid = _grid("parallax", 1, 16, 24, rng)
+    cot = rng.normal(size=(1, 16, 24, 3)).astype(np.float32)
+    _, dg = _compare(img, grid, cot, dict(k=8),
+                     lambda i, g: tband.band_warp(i, g, k=8))
+    assert np.abs(dg).max() > 0
