@@ -25,11 +25,27 @@
 // from device memory and its 4 taps per pixel hit L1/L2, since neighbouring
 // output pixels sample neighbouring source pixels.  K3 reads ix, iy, the
 // cotangent g (C floats) and the image, and writes dix, diy (8 B).  A few
-// dozen flops per pixel are far below the arithmetic rate.  So the design is
-// one thread per output pixel, f32 throughout, channels last in and out:
-// ix/iy/dix/diy accesses are unit-stride across a warp, out and g are C
-// consecutive floats per thread, and no transposes surround the kernel (the
-// TPU wrote (B, OH, C, OW) and transposed after).
+// dozen flops per pixel are far below the arithmetic rate.  f32 throughout,
+// channels last in and out, no transposes around the kernels (the TPU wrote
+// (B, OH, C, OW) and transposed after).  K2 has three layouts, each keeping
+// every warp-wide access at full width, with the batch on the grid's y so
+// that no pixel divides by the image size:
+//   - C = 1: one thread per pixel; out is unit-stride across a warp.
+//   - C = 3 (the training warps): one thread per pixel; the block's output
+//     tile goes through shared memory (lane t writes at 3t: no bank
+//     conflict) and leaves as consecutive 16-byte stores.  Stored straight
+//     from registers, each channel's warp-wide store spanned 384 B.
+//   - C a multiple of 4 (the plane sweep's C = 64 feature channels): lanes
+//     over channels, C/4 lanes a pixel.  Each lane reads its float4 of each
+//     of the four taps and stores its float4, so a pixel's group reads and
+//     writes 4C contiguous bytes (256 B at C = 64).  One thread per pixel
+//     stored C floats 4C bytes apart across a warp.  The stores stream
+//     (__stcs, evict first): the plane sweep writes 472 MB, nine times the
+//     L2, and the image it gathers from (29 MB) should stay there.
+// C = 1, 3, 4 and 64 are compiled for their C; any other C takes the same
+// layouts with C read at run time, and C not in {1, 3} and not a multiple
+// of 4 takes one thread per pixel with scalar stores.  K3 is one thread per
+// pixel: it reads g as the forward writes out, and writes two floats.
 //
 // Rounding: built with -fmad=false and written in the order of the plain
 // torch versions in ops/band_warp.py, so the two agree to the last bit or
@@ -53,9 +69,9 @@ struct Taps {
   float fy;
 };
 
-__device__ __forceinline__ Taps taps(const float* __restrict__ img, float x,
-                                     float y, long long b, int H, int W,
-                                     int C) {
+// plane: the pixel's image (H, W, C)
+__device__ __forceinline__ Taps taps(const float* __restrict__ plane, float x,
+                                     float y, int H, int W, int C) {
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   Taps t;
@@ -64,7 +80,6 @@ __device__ __forceinline__ Taps taps(const float* __restrict__ img, float x,
   // memory safety only: the caller's coordinates lie in [0, W-1] x [0, H-1]
   const int x0 = min(max(static_cast<int>(x0f), 0), W - 1);
   const int y0 = min(max(static_cast<int>(y0f), 0), H - 1);
-  const float* plane = img + b * H * W * C;
   t.r0 = plane + static_cast<long long>(y0) * W * C;
   t.r1 = plane + static_cast<long long>(min(y0 + 1, H - 1)) * W * C;
   t.x0 = x0 * C;
@@ -72,28 +87,102 @@ __device__ __forceinline__ Taps taps(const float* __restrict__ img, float x,
   return t;
 }
 
-// CT > 0 fixes the channel count at compile time; CT == 0 reads it from C.
+// The bilinear value of one channel, in the plain version's order.
+__device__ __forceinline__ float lerp4(float v00, float v01, float v10,
+                                       float v11, float fx, float fy) {
+  const float t0 = (1.0f - fx) * v00 + fx * v01;
+  const float t1 = (1.0f - fx) * v10 + fx * v11;
+  return (1.0f - fy) * t0 + fy * t1;
+}
+
+// K2, one thread per output pixel.  CT > 0 fixes the channel count at
+// compile time; CT == 0 reads it from C.  CT == 3 stages the block's output
+// tile in shared memory and stores it as 16-byte chunks (out must be 16-byte
+// aligned); otherwise each thread stores its C floats.
 template <int CT>
 __global__ void __launch_bounds__(kThreads)
-    band_warp_fwd_kernel(const float* __restrict__ img,
-                         const float* __restrict__ ix,
-                         const float* __restrict__ iy, float* __restrict__ out,
-                         int H, int W, int C_rt, long long per_image,
-                         long long n) {
+    band_warp_fwd_pixel(const float* __restrict__ img,
+                        const float* __restrict__ ix,
+                        const float* __restrict__ iy, float* __restrict__ out,
+                        int B, int H, int W, int C_rt, int per_image) {
+  constexpr bool kStaged = CT == 3;
   const int C = CT > 0 ? CT : C_rt;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       p < n; p += stride) {
-    const Taps t = taps(img, ix[p], iy[p], p / per_image, H, W, C);
-    const float gx = 1.0f - t.fx;
-    const float gy = 1.0f - t.fy;
-    float* o = out + p * C;
+  // the tile, shifted by the output's offset mod 4 floats
+  __shared__ float4 stage4[kStaged ? (kThreads * CT + 3 + 3) / 4 : 1];
+  float* const stage = reinterpret_cast<float*>(stage4);
+  const int n_tiles = (per_image + kThreads - 1) / kThreads;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* plane = img + static_cast<long long>(b) * H * W * C;
+    const long long pix0 = static_cast<long long>(b) * per_image;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int q0 = tile * kThreads;
+      const int q = q0 + threadIdx.x;
+      const long long e0 = (pix0 + q0) * C;  // the tile's first float of out
+      const int shift = static_cast<int>(e0 & 3);
+      if (q < per_image) {
+        const long long p = pix0 + q;
+        const Taps t = taps(plane, __ldg(ix + p), __ldg(iy + p), H, W, C);
+        float* o = kStaged ? stage + shift + threadIdx.x * C : out + p * C;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float t0 = gx * __ldg(t.r0 + t.x0 + c) + t.fx * __ldg(t.r0 + t.x1 + c);
-      const float t1 = gx * __ldg(t.r1 + t.x0 + c) + t.fx * __ldg(t.r1 + t.x1 + c);
-      o[c] = gy * t0 + t.fy * t1;
+        for (int c = 0; c < C; ++c)
+          o[c] = lerp4(__ldg(t.r0 + t.x0 + c), __ldg(t.r0 + t.x1 + c),
+                       __ldg(t.r1 + t.x0 + c), __ldg(t.r1 + t.x1 + c), t.fx,
+                       t.fy);
+      }
+      if (kStaged) {
+        __syncthreads();
+        // stage[j] holds out[e0 - shift + j] for j in [shift, shift + total)
+        const int total = min(kThreads, per_image - q0) * C;
+        const int chunks = (shift + total + 3) >> 2;
+        float* const dst = out + (e0 - shift);
+        for (int k = threadIdx.x; k < chunks; k += kThreads) {
+          const int j = 4 * k;
+          if (j >= shift && j + 4 <= shift + total) {
+            reinterpret_cast<float4*>(dst)[k] = stage4[k];
+          } else {
+            for (int u = max(j, shift); u < min(j + 4, shift + total); ++u)
+              dst[u] = stage[u];
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+// K2, lanes over channels: C = 4 * L, L lanes a pixel, each lane one float4
+// of every tap and of the output.  LT > 0 fixes L at compile time.  img and
+// out must be 16-byte aligned.
+template <int LT>
+__global__ void __launch_bounds__(kThreads)
+    band_warp_fwd_lanes(const float* __restrict__ img,
+                        const float* __restrict__ ix,
+                        const float* __restrict__ iy, float* __restrict__ out,
+                        int B, int H, int W, int L_rt, int per_image) {
+  const int L = LT > 0 ? LT : L_rt;
+  const int C = 4 * L;
+  const long long items = static_cast<long long>(per_image) * L;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* plane = img + static_cast<long long>(b) * H * W * C;
+    const long long pix0 = static_cast<long long>(b) * per_image;
+    for (long long q = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+         q < items; q += static_cast<long long>(gridDim.x) * kThreads) {
+      const long long p = pix0 + q / L;
+      const int lane4 = 4 * static_cast<int>(q % L);
+      const Taps t = taps(plane, __ldg(ix + p), __ldg(iy + p), H, W, C);
+      const float* r0 = t.r0 + lane4;
+      const float* r1 = t.r1 + lane4;
+      const float4 v00 = __ldg(reinterpret_cast<const float4*>(r0 + t.x0));
+      const float4 v01 = __ldg(reinterpret_cast<const float4*>(r0 + t.x1));
+      const float4 v10 = __ldg(reinterpret_cast<const float4*>(r1 + t.x0));
+      const float4 v11 = __ldg(reinterpret_cast<const float4*>(r1 + t.x1));
+      float4 o;
+      o.x = lerp4(v00.x, v01.x, v10.x, v11.x, t.fx, t.fy);
+      o.y = lerp4(v00.y, v01.y, v10.y, v11.y, t.fx, t.fy);
+      o.z = lerp4(v00.z, v01.z, v10.z, v11.z, t.fx, t.fy);
+      o.w = lerp4(v00.w, v01.w, v10.w, v11.w, t.fx, t.fy);
+      __stcs(reinterpret_cast<float4*>(out + p * C + lane4), o);
     }
   }
 }
@@ -111,7 +200,8 @@ __global__ void __launch_bounds__(kThreads)
   for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        p < n; p += stride) {
-    const Taps t = taps(img, ix[p], iy[p], p / per_image, H, W, C);
+    const Taps t = taps(img + (p / per_image) * H * W * C, ix[p], iy[p], H, W,
+                        C);
     const float gx = 1.0f - t.fx;
     const float gy = 1.0f - t.fy;
     const float* gp = g + p * C;
@@ -134,13 +224,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int blocks_for(long long n) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(want < (1LL << 30) ? want : (1LL << 30));
+unsigned blocks_for(long long items) {
+  const long long want = (items + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(want < (1LL << 30) ? want : (1LL << 30));
 }
 
 bool bad_shape(int H, int W, int C, long long per_image, long long n) {
   return H <= 0 || W <= 0 || C <= 0 || per_image <= 0 || n % per_image;
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 != 0;
 }
 
 }  // namespace
@@ -148,23 +242,44 @@ bool bad_shape(int H, int W, int C, long long per_image, long long n) {
 extern "C" {
 
 // img (B, H, W, C), ix and iy (B, OH, OW), out (B, OH, OW, C); float32,
-// contiguous.  per_image = OH * OW, n = B * OH * OW.
+// contiguous; out 16-byte aligned, and img too where C is a multiple of 4.
+// per_image = OH * OW, n = B * OH * OW.
 int band_warp_fwd_launch(const float* img, const float* ix, const float* iy,
                          float* out, int H, int W, int C, long long per_image,
                          long long n, void* stream) {
   if (n == 0) return 0;
-  if (bad_shape(H, W, C, per_image, n)) return cudaErrorInvalidValue;
+  if (bad_shape(H, W, C, per_image, n) || per_image >= (1LL << 31) - kThreads ||
+      (C % 4 == 0 && misaligned(img)) || misaligned(out))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for(n);
-  if (C == 3) {
-    band_warp_fwd_kernel<3><<<blocks, kThreads, 0, s>>>(img, ix, iy, out, H, W,
-                                                        C, per_image, n);
-  } else if (C == 1) {
-    band_warp_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(img, ix, iy, out, H, W,
-                                                        C, per_image, n);
+  const long long B = n / per_image;
+  const int P = static_cast<int>(per_image);
+  const unsigned by = static_cast<unsigned>(B < 65535 ? B : 65535);
+  if (C % 4 == 0) {
+    const int L = C / 4;
+    const dim3 grid(blocks_for(per_image * L), by);
+    if (L == 16) {
+      band_warp_fwd_lanes<16><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                        W, L, P);
+    } else if (L == 1) {
+      band_warp_fwd_lanes<1><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                       W, L, P);
+    } else {
+      band_warp_fwd_lanes<0><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                       W, L, P);
+    }
   } else {
-    band_warp_fwd_kernel<0><<<blocks, kThreads, 0, s>>>(img, ix, iy, out, H, W,
-                                                        C, per_image, n);
+    const dim3 grid(blocks_for(per_image), by);
+    if (C == 3) {
+      band_warp_fwd_pixel<3><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                       W, C, P);
+    } else if (C == 1) {
+      band_warp_fwd_pixel<1><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                       W, C, P);
+    } else {
+      band_warp_fwd_pixel<0><<<grid, kThreads, 0, s>>>(img, ix, iy, out, B, H,
+                                                       W, C, P);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -177,7 +292,7 @@ int band_warp_bwd_launch(const float* img, const float* ix, const float* iy,
   if (n == 0) return 0;
   if (bad_shape(H, W, C, per_image, n)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_for(n);
+  const int blocks = static_cast<int>(blocks_for(n));
   if (C == 3) {
     band_warp_bwd_kernel<3><<<blocks, kThreads, 0, s>>>(
         img, ix, iy, g, dix, diy, H, W, C, per_image, n);

@@ -96,6 +96,10 @@ def _check(img, ix, iy, g=None):
         raise ValueError(f"no band_warp kernel for device {device}")
     if device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
         raise ValueError("band_warp kernels take contiguous tensors")
+    if device.type == "cuda" and img.shape[3] % 4 == 0 and \
+            img.data_ptr() % 16:
+        raise ValueError("band_warp kernels read an image of 4k channels as "
+                         "float4: it must be 16-byte aligned")
     return device
 
 

@@ -16,6 +16,7 @@ from polardepth_tpu_torch.ops.fresnel import normal_priors_from_xolp, tables_on
 from polardepth_tpu_torch.ops.xolp import PINV_F32, xolp_from_pol
 
 _NAME = "polar_preprocess"
+_MAX_BINS = 128  # per curve section (csrc/polar_preprocess.cu)
 
 
 def polar_preprocess_plain(pol: torch.Tensor, n: float = 1.5,
@@ -52,6 +53,10 @@ def fused_polar_preprocess(pol: torch.Tensor, n: float = 1.5,
     if n_pix == 0:
         return xolp, priors
     ck, rows, offsets = tables_on(pol.device, float(n), prune_tol)
+    if max(b - a for a, b in zip(offsets, offsets[1:])) > _MAX_BINS:
+        raise ValueError(f"the kernel takes at most {_MAX_BINS} coarse bins "
+                         f"per curve; the table of n={n}, prune_tol="
+                         f"{prune_tol} has sections {offsets}")
     lib = build.library(_NAME)
     with torch.cuda.device(pol.device):
         stream = torch.cuda.current_stream(pol.device).cuda_stream

@@ -94,6 +94,23 @@ def test_band_warp_matches_pallas_interpret(kind, c, k, rp, align_corners):
              lambda i, g: tband.band_warp(i, g, **kw))
 
 
+@pytest.mark.parametrize("kind", ["rotated", "shear", "border", "parallax"])
+def test_band_warp_plane_sweep_shape_matches_pallas_interpret(kind):
+    """The plane sweep's shape class (polardepth_tpu/models/cost_volume.py:
+    134-147): 64 feature channels, k = 8, and OH = 4 H, the output rows
+    holding one grid per depth bin, each bin's grid shifted a little more."""
+    rng = np.random.default_rng(5)
+    b, h, w, c, bins = 2, 16, 24, 64, 4
+    img = rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)
+    grid = np.concatenate([_grid(kind, b, h, w, rng) + np.float32(0.04 * d)
+                           for d in range(bins)], axis=1)
+    assert grid.shape == (b, bins * h, w, 2)
+    cot = rng.normal(size=(b, bins * h, w, c)).astype(np.float32)
+    out, _ = _compare(img, grid, cot, dict(k=8),
+                      lambda i, g: tband.band_warp(i, g, k=8))
+    assert out.shape == (b, bins * h, w, c)
+
+
 @pytest.mark.parametrize("kind", ["rotated", "border", "parallax"])
 @pytest.mark.parametrize("hx", [0, 256])
 def test_band_warp_horizontal_window(kind, hx):

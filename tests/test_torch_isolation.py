@@ -116,6 +116,32 @@ def test_chip_smoke_training_phases_on_cpu():
     assert sv["ms_per_step"] > 0 and set(sv["launches"].values()) == {0}
 
 
+def test_chip_smoke_plane_sweep_inputs_on_cpu():
+    """Phase 5's plane-sweep operands at a small size: the bins stacked on
+    rows, coordinates inside the image and each row's 8-row band, and the
+    band warp of the grid equal to K2's function on them."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from polardepth_tpu_torch.ops import band_warp
+    b, h, w, c, bins = 2, 20, 30, 8, 4
+    x = chip_smoke.plane_sweep_inputs(np.random.default_rng(0), b, h, w, c,
+                                      bins, "cpu")
+    assert x["img"].shape == (b, h, w, c)
+    assert x["grid"].shape == (b, bins * h, w, 2)
+    ix, iy = x["ix"], x["iy"]
+    assert ix.shape == iy.shape == (b, bins * h, w)
+    assert float(ix.min()) >= 0 and float(ix.max()) <= w - 1
+    assert float(iy.min()) >= 0 and float(iy.max()) <= h - 1
+    span = iy.amax(dim=2) - torch.floor(iy).amin(dim=2)
+    assert float(span.max()) <= 7
+    assert 0.0 <= x["clamped"] < 0.5
+    out = band_warp.band_warp(x["img"], x["grid"], k=8)
+    assert torch.equal(out, band_warp.band_warp_fwd(x["img"], ix, iy))
+
+
 def test_chip_smoke_fails_without_card_or_package(tmp_path):
     """No result line and a non-zero exit: here, where there is no card,
     and from a directory that holds chip_smoke.py alone."""
