@@ -260,11 +260,13 @@ def preprocess_bound_ms(n_pix: int) -> tuple[float, str]:
 
 def sass_pixel_loop(lib: Path, name: str) -> dict:
     """The SASS (cuobjdump) of kernel ``name``'s outermost loop in ``lib``:
-    its instructions, those on the slow paths (code that a forward branch
+    its instructions; those on the slow paths (code that a forward branch
     skips and that holds one loop using local memory: sincosf's reduction
-    of an angle beyond 105615, never taken here), and the opcodes of the
-    rest, each inner loop counted once.  Code after the first unconditional EXIT
-    (cold calls) is in no loop."""
+    of an angle beyond 105615, never taken here); those that an
+    unconditional forward branch jumps over (the other arm of an if/else,
+    such as the copy of a partial last tile); and the opcodes of the rest,
+    which every pass issues, each inner loop counted once.  Code after the
+    first unconditional EXIT (cold calls) is in no loop."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                          capture_output=True, text=True, check=True).stdout
@@ -286,28 +288,34 @@ def sass_pixel_loop(lib: Path, name: str) -> dict:
         # a branch names its target by label, or (older cuobjdump) by address
         target = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b",
                            m.group(4).split(";")[0])
-        ops.append((addr, op, target and (target.group(1)
-                                          or int(target.group(2), 16))))
+        ops.append((addr, pred, op, target and (target.group(1)
+                                                or int(target.group(2), 16))))
         if op == "EXIT" and not pred:
             break
-    branches = [(a, labels.get(t, t)) for a, op, t in ops
+    branches = [(a, labels.get(t, t), p) for a, p, op, t in ops
                 if op.startswith("BRA") and t is not None]
-    loops = [(t, a) for a, t in branches if isinstance(t, int) and t <= a]
+    jumps = [(a, t, p) for a, t, p in branches if isinstance(t, int)]
+    loops = [(t, a) for a, t, _ in jumps if t <= a]
     if not loops:
         raise ValueError(f"no loop in {name}")
     lo, hi = max(loops, key=lambda lp: lp[1] - lp[0])
     local = [(t, a) for t, a in loops if (t, a) != (lo, hi) and any(
-        t <= x <= a and op.startswith(("STL", "LDL")) for x, op, _ in ops)]
-    slow = [(a, t) for a, t in branches if isinstance(t, int) and t > a and
+        t <= x <= a and op.startswith(("STL", "LDL")) for x, _, op, _ in ops)]
+    slow = [(a, t) for a, t, _ in jumps if t > a and
             sum(a < s and e < t for s, e in local) == 1]
-    body = [(x, op) for x, op, _ in ops if lo <= x <= hi]
-    cold = [(x, op) for x, op in body if any(a < x < t for a, t in slow)]
+    arm = [(a, t) for a, t, p in jumps if t > a and not p and lo <= a <= hi]
+    body = [(x, op) for x, _, op, _ in ops if lo <= x <= hi]
+    n_slow = n_arm = 0
     counts = {}
     for x, op in body:
-        if (x, op) not in cold:
+        if any(a < x < t for a, t in slow):
+            n_slow += 1
+        elif any(a < x < t for a, t in arm):
+            n_arm += 1
+        else:
             counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
-    return {"instructions": len(body), "slow_path": len(cold),
-            "opcodes": counts}
+    return {"instructions": len(body), "slow_path": n_slow,
+            "other_arm": n_arm, "opcodes": counts}
 
 
 def preprocess_issue_floor(device: torch.device, n_pix: int) -> None:
@@ -317,7 +325,7 @@ def preprocess_issue_floor(device: torch.device, n_pix: int) -> None:
     an SM's 4 schedulers, at the card's highest SM clock."""
     try:
         loop = sass_pixel_loop(build._target("polar_preprocess"),
-                               "polar_preprocess_kernel")
+                               "polar_preprocess_kernelILi64")  # <64> bins
         mhz = float(subprocess.run(
             ["nvidia-smi", "-i", os.environ.get("CUDA_VISIBLE_DEVICES", "0"),
              "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -326,15 +334,15 @@ def preprocess_issue_floor(device: torch.device, n_pix: int) -> None:
             StopIteration, ValueError, IndexError) as e:
         print(f"  polar_preprocess SASS: not measured ({e!r})")
         return
-    hot = loop["instructions"] - loop["slow_path"]
+    hot = sum(loop["opcodes"].values())
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     floor_ms = hot * n_pix / 32 / (sms * 4 * mhz * 1e6) * 1e3
     top = sorted(loop["opcodes"].items(), key=lambda kv: -kv[1])[:12]
     print(f"  polar_preprocess SASS: pixel loop {loop['instructions']} "
-          f"instructions, {loop['slow_path']} of them on slow paths; {hot} "
-          f"issued per warp pass: issue floor at {n_pix} px {floor_ms:.4f} "
-          f"ms ({sms} SMs x 4 issue/clk at {mhz:.0f} MHz); opcodes "
-          f"{dict(top)}")
+          f"instructions: {loop['slow_path']} on slow paths, "
+          f"{loop['other_arm']} on the other arm of an if/else, {hot} issued "
+          f"by every warp pass; issue floor at {n_pix} px {floor_ms:.4f} ms "
+          f"({sms} SMs x 4 issue/clk at {mhz:.0f} MHz); opcodes {dict(top)}")
 
 
 def check_kernel(device: torch.device, batch: int, cfg: Config,

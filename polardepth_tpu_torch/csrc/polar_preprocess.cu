@@ -29,8 +29,9 @@
 //     many bins at once (rho differs per pixel), and at a stride of 32 every
 //     row began in bank 0, so each distinct bin cost one more pass;
 //   - the bin search is six halving steps over each curve's knots, padded
-//     with +inf to 64 in shared memory (seven, to 128, for an unpruned
-//     table), so no step checks a bound and every lane takes the same steps;
+//     with +inf to 64 in shared memory (seven, to 128, for the wider tables
+//     of n near 1 or of no pruning), so no step checks a bound and every
+//     lane takes the same steps;
 //   - a persistent grid, as many blocks as fit on the card at once
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each staging the
 //     table once and then walking over 256-pixel tiles.
@@ -94,8 +95,9 @@ __device__ __forceinline__ void normal(float* o, float cos_az, float sin_az,
   o[2] = ct;
 }
 
-// MaxBins: the padded size of a curve's section, 64 for the pruned tables
-// (at most 60 bins for n in [1.3, 1.8]) and 128 for the unpruned ones.
+// MaxBins: the padded size of a curve's section: 64 for the pruned tables
+// of n >= 1.2 (at most 60 bins), 128 for those of n near 1 (71 at n = 1.05)
+// and the unpruned ones (125).
 template <int MaxBins>
 __global__ void __launch_bounds__(kThreads)
 polar_preprocess_kernel(const float4* __restrict__ pol,

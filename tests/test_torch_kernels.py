@@ -101,13 +101,16 @@ def test_polar_preprocess_kernel_at_the_tile_edges(card, kind, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1.3, 1.5])
-def test_polar_preprocess_kernel_with_an_unpruned_table(card, n):
-    """prune_tol=None keeps every knot: up to 125 bins a curve, which the
-    kernel searches in sections padded to 128 rather than 64."""
+@pytest.mark.parametrize("n,prune_tol", [(1.3, None), (1.5, None),
+                                         (1.05, 1e-5)])
+def test_polar_preprocess_kernel_with_wide_table_sections(card, n,
+                                                          prune_tol):
+    """Tables whose curves hold more than 64 coarse bins (every knot kept:
+    125; n = 1.05 pruned: 71), which the kernel searches in sections padded
+    to 128 rather than 64."""
     pol = torch.from_numpy(_pol_pixels("wild", (4, 33, 35))).to(card)
-    xo, pr = fused_polar_preprocess(pol, n, None)
-    xo_p, pr_p = polar_preprocess_plain(pol, n, None)
+    xo, pr = fused_polar_preprocess(pol, n, prune_tol)
+    xo_p, pr_p = polar_preprocess_plain(pol, n, prune_tol)
     torch.cuda.synchronize()
     assert float((xo - xo_p).abs().max()) <= XOLP_TOL
     assert float((pr - pr_p).abs().max()) <= PRIORS_TOL
