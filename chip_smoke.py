@@ -10,9 +10,7 @@ version.  One timed line per phase:
 
   1. device: the card's name and power limit; TF32 off for convolutions and
      matrix products, so float32 means float32.
-  2. build: nvcc builds the kernels from csrc/ (ops/build.py); each
-     kernel's registers, and the SASS instructions of the preprocess
-     kernel's pixel loop (cuobjdump) with the issue floor they set.
+  2. build: nvcc builds the kernels from csrc/ (ops/build.py).
   3. kernel: the polar-preprocess kernel against its plain version at the
      serving shape, on physical, wild, zero-intensity and odd-sized inputs;
      its time beside the plain version's and its memory bound.
@@ -28,10 +26,6 @@ version.  One timed line per phase:
      Then K2 at the plane sweep's shape (the teacher's cost volume: 64
      feature channels at 80x120, 16 depth bins stacked on rows, k = 8)
      against its plain version, beside F.grid_sample and its bound.
-  5b. against (with --against DIR ...): the kernels of other checkouts,
-     built with the same flags, on the same inputs as this tree's, timed
-     in turns in this process: the before/after comparison of a kernel
-     change on one card.
   6. self-supervised training: PUBLISHED with depth_supervision_only off,
      three frames, one warm-up and ``--steps`` timed steps; every loss
      finite, K1 once and K2, K3 eight times per step; then one step with
@@ -41,7 +35,6 @@ version.  One timed line per phase:
   8. result: the kernels' JSON line, then the final JSON line.
 
 Usage: python3 chip_smoke.py [--seed N] [--requests N] [--steps N]
-                             [--against DIR ...]
 Exits non-zero, printing no result, without a CUDA device.
 """
 
@@ -49,14 +42,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -215,39 +205,43 @@ def preprocess_errors(pol: torch.Tensor) -> dict:
             "finite": finite}
 
 
-def time_ms(fn, iters: int, warmup: int = 5,
-            windows: int = 5) -> tuple[float, float]:
-    """(device ms, host ms) per call of fn: the median over ``windows``
-    windows of iters // windows calls each, after warmup calls.  Each window
-    starts behind a spin on the card (torch.cuda._sleep) long enough for the
-    host to queue the whole window, so the device runs the calls back to
-    back and its time holds no wait for the host, whose enqueue time per
-    call can match a small kernel's time on a busy machine.  The median
-    keeps a stall in one window from moving the result."""
-    fn()
-    torch.cuda.synchronize()
-    host = time.perf_counter()
+def time_ms(fn, iters: int, warmup: int = 5) -> tuple[float, float]:
+    """(device ms, host ms) per call of fn, over iters calls after warmup.
+    Where the host takes longer per call than the device, the device time
+    includes idle gaps and is host-bound."""
     for _ in range(warmup):
         fn()
-    host_ms = 1e3 * (time.perf_counter() - host) / warmup
     torch.cuda.synchronize()
-    per = max(1, iters // windows)
-    spin = int(SPIN_CYCLES_PER_MS * (2.0 * per * host_ms + 0.5))
-    events, hosts = [], []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        host = time.perf_counter()
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        hosts.append(1e3 * (time.perf_counter() - host) / per)
-        events.append((start, end))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = time.perf_counter() - host
     torch.cuda.synchronize()
-    device = [s.elapsed_time(e) / per for s, e in events]
-    return float(np.median(device)), float(np.median(hosts))
+    return start.elapsed_time(end) / iters, 1e3 * host / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device ms per call of fn over iters back-to-back calls queued behind
+    a spin on the card (0.2 ms per call, several times a wrapper's host
+    time), so that the card runs them with no wait for the host: a
+    kernel's own time where its wrapper's host time per call is longer and
+    time_ms reads the host.  Printed beside time_ms's reading, which the
+    kernels line keeps."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * 0.2 * iters))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def preprocess_bound_ms(n_pix: int) -> tuple[float, str]:
@@ -256,93 +250,6 @@ def preprocess_bound_ms(n_pix: int) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = n_pix * PREPROCESS_OPS_PER_PIXEL / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def sass_pixel_loop(lib: Path, name: str) -> dict:
-    """The SASS (cuobjdump) of kernel ``name``'s outermost loop in ``lib``:
-    its instructions; those on the slow paths (code that a forward branch
-    skips and that holds one loop using local memory: sincosf's reduction
-    of an angle beyond 105615, never taken here); those that an
-    unconditional forward branch jumps over (the other arm of an if/else,
-    such as the copy of a partial last tile); and the opcodes of the rest,
-    which every pass issues, each inner loop counted once.  Code after the
-    first unconditional EXIT (cold calls) is in no loop."""
-    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                         capture_output=True, text=True, check=True).stdout
-    text = next(f for f in out.split("Function : ")[1:]
-                if name in f.split("\n", 1)[0])
-    labels, ops, pending = {}, [], []
-    for line in text.splitlines():
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
-        if not m:
-            continue
-        addr, pred, op = int(m.group(1), 16), m.group(2), m.group(3)
-        labels.update((label, addr) for label in pending)
-        pending = []
-        # a branch names its target by label, or (older cuobjdump) by address
-        target = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b",
-                           m.group(4).split(";")[0])
-        ops.append((addr, pred, op, target and (target.group(1)
-                                                or int(target.group(2), 16))))
-        if op == "EXIT" and not pred:
-            break
-    branches = [(a, labels.get(t, t), p) for a, p, op, t in ops
-                if op.startswith("BRA") and t is not None]
-    jumps = [(a, t, p) for a, t, p in branches if isinstance(t, int)]
-    loops = [(t, a) for a, t, _ in jumps if t <= a]
-    if not loops:
-        raise ValueError(f"no loop in {name}")
-    lo, hi = max(loops, key=lambda lp: lp[1] - lp[0])
-    local = [(t, a) for t, a in loops if (t, a) != (lo, hi) and any(
-        t <= x <= a and op.startswith(("STL", "LDL")) for x, _, op, _ in ops)]
-    slow = [(a, t) for a, t, _ in jumps if t > a and
-            sum(a < s and e < t for s, e in local) == 1]
-    arm = [(a, t) for a, t, p in jumps if t > a and not p and lo <= a <= hi]
-    body = [(x, op) for x, _, op, _ in ops if lo <= x <= hi]
-    n_slow = n_arm = 0
-    counts = {}
-    for x, op in body:
-        if any(a < x < t for a, t in slow):
-            n_slow += 1
-        elif any(a < x < t for a, t in arm):
-            n_arm += 1
-        else:
-            counts[op.split(".")[0]] = counts.get(op.split(".")[0], 0) + 1
-    return {"instructions": len(body), "slow_path": n_slow,
-            "other_arm": n_arm, "opcodes": counts}
-
-
-def preprocess_issue_floor(device: torch.device, n_pix: int) -> None:
-    """Print the SASS instructions of one pass of the preprocess kernel's
-    pixel loop (one warp, 32 pixels) and the time the card needs just to
-    issue them for n_pix pixels: one warp instruction per clock on each of
-    an SM's 4 schedulers, at the card's highest SM clock."""
-    try:
-        loop = sass_pixel_loop(build._target("polar_preprocess"),
-                               "polar_preprocess_kernelILi64")  # <64> bins
-        mhz = float(subprocess.run(
-            ["nvidia-smi", "-i", os.environ.get("CUDA_VISIBLE_DEVICES", "0"),
-             "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, check=True).stdout.split()[0])
-    except (OSError, RuntimeError, subprocess.CalledProcessError,
-            StopIteration, ValueError, IndexError) as e:
-        print(f"  polar_preprocess SASS: not measured ({e!r})")
-        return
-    hot = sum(loop["opcodes"].values())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    floor_ms = hot * n_pix / 32 / (sms * 4 * mhz * 1e6) * 1e3
-    top = sorted(loop["opcodes"].items(), key=lambda kv: -kv[1])[:12]
-    print(f"  polar_preprocess SASS: pixel loop {loop['instructions']} "
-          f"instructions: {loop['slow_path']} on slow paths, "
-          f"{loop['other_arm']} on the other arm of an if/else, {hot} issued "
-          f"by every warp pass; issue floor at {n_pix} px {floor_ms:.4f} ms "
-          f"({sms} SMs x 4 issue/clk at {mhz:.0f} MHz); opcodes {dict(top)}")
 
 
 def check_kernel(device: torch.device, batch: int, cfg: Config,
@@ -530,15 +437,19 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
         require(e["dix"] <= WARP_GRAD_RTOL * e["dix_max"]
                 and e["diy"] <= WARP_GRAD_RTOL * e["diy_max"],
                 f"K3 error on the {name} grid")
-        t = {"fwd": time_ms(lambda: band_warp.band_warp_fwd(img, ix, iy),
-                            iters)[0],
-             "fwd_plain": time_ms(
-                 lambda: band_warp.band_warp_fwd_plain(img, ix, iy), 10)[0],
-             "bwd": time_ms(lambda: band_warp.band_warp_bwd(img, ix, iy, g),
-                            iters)[0],
-             "bwd_plain": time_ms(
-                 lambda: band_warp.band_warp_bwd_plain(img, ix, iy, g),
-                 10)[0]}
+        t = {}
+        t["fwd"], t["fwd_host"] = time_ms(
+            lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
+        t["fwd_plain"] = time_ms(
+            lambda: band_warp.band_warp_fwd_plain(img, ix, iy), 10)[0]
+        t["bwd"], t["bwd_host"] = time_ms(
+            lambda: band_warp.band_warp_bwd(img, ix, iy, g), iters)
+        t["bwd_plain"] = time_ms(
+            lambda: band_warp.band_warp_bwd_plain(img, ix, iy, g), 10)[0]
+        t["fwd_device"] = device_ms(
+            lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
+        t["bwd_device"] = device_ms(
+            lambda: band_warp.band_warp_bwd(img, ix, iy, g), iters)
         # the library yardstick: torch's bilinear border grid_sample on the
         # same image (a channels-last view) and grid; its grid-only backward
         nchw = img.permute(0, 3, 1, 2)
@@ -557,7 +468,9 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
         for k in ("fwd", "bwd"):
             bound, by = bounds[k]
             print(f"  {name:8s} {'K2' if k == 'fwd' else 'K3'} kernel_ms "
-                  f"{t[k]:.4f}  plain_ms {t[k + '_plain']:.4f}  "
+                  f"{t[k]:.4f}  (wrapper host ms {t[k + '_host']:.4f}; "
+                  f"behind a spin {t[k + '_device']:.4f})  "
+                  f"plain_ms {t[k + '_plain']:.4f}  "
                   f"F.grid_sample {'forward' if k == 'fwd' else 'grid backward'}"
                   f" ms {t[k + '_library']:.4f}  bound_ms {bound:.4f} ({by})"
                   f"  share of bound {bound / t[k]:.3f}  [{name_power}]")
@@ -627,104 +540,6 @@ def check_plane_sweep(device: torch.device, batch: int, seed: int,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "clamped": clamped}
-
-
-# --- phase 5b: this tree's kernels against another checkout's ---------------
-
-def kernels_of(root: Path) -> dict:
-    """Another checkout's csrc/*.cu, built with this tree's nvcc flags into
-    its own build/against/ and loaded with this tree's C signatures (the
-    launch interface must not have changed)."""
-    csrc = root / "polardepth_tpu_torch" / "csrc"
-    out_dir = root / "build" / "against"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-         str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for name in build.SIGNATURES}
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        require(proc.returncode == 0, f"nvcc failed on {csrc / name}.cu:\n"
-                f"{log[-3000:]}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for fn_name, restype, argtypes in build.SIGNATURES[name]:
-            fn = getattr(lib, fn_name)
-            fn.restype = restype
-            fn.argtypes = list(argtypes)
-        libs[name] = lib
-    return libs
-
-
-@contextlib.contextmanager
-def launching(libs: dict | None):
-    """This tree's wrappers, launching the kernels of ``libs`` (or this
-    tree's own where None)."""
-    saved = dict(build._libs)
-    build._libs.update(libs or {})
-    try:
-        yield
-    finally:
-        build._libs.clear()
-        build._libs.update(saved)
-
-
-def against(device, trees: dict, batch: int, cfg: Config, seed: int,
-            name_power: str, iters: int = 100) -> None:
-    """Each kernel of this tree and of each other tree on the same inputs,
-    timed in turns (this, other, other, this) within this one process:
-    K1 at the serving shape, K2 and K3 at the training shape (parallax
-    grid) and K2 at the plane sweep's.  The other tree's outputs must equal
-    this tree's within the limits of phases 3 and 5."""
-    rng = np.random.default_rng(seed + 9)
-    h, w = cfg.height, cfg.width
-    pol = torch.from_numpy(physical_pol(rng, (batch, h, w))).to(device)
-    img = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 3)).astype(
-        np.float32)).to(device)
-    g = torch.from_numpy(rng.normal(size=(batch, h, w, 3)).astype(
-        np.float32)).to(device)
-    geo = band_warp.band_geometry(h, w, 3, h)
-    ix, iy, _ = band_warp.prep(img.shape, parallax_grid(rng, batch, h, w,
-                                                        device),
-                               geo["k"], geo["step"], True, geo["wp"])
-    sweep = plane_sweep_inputs(rng, batch, h // 4, w // 4, 64, 16, device)
-    cases = {
-        "K1 polar_preprocess": (lambda: fused_polar_preprocess(pol),
-                                PRIORS_TOL),
-        "K2 band_warp_fwd training": (
-            lambda: band_warp.band_warp_fwd(img, ix, iy), WARP_TOL),
-        "K3 band_warp_bwd training": (
-            lambda: band_warp.band_warp_bwd(img, ix, iy, g), None),
-        "K2 band_warp_fwd plane sweep": (lambda: band_warp.band_warp_fwd(
-            sweep["img"], sweep["ix"], sweep["iy"]), WARP_TOL)}
-    for case, (fn, tol) in cases.items():
-        ref = fn()
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        errs = {}
-        for tree, libs in trees.items():
-            with launching(libs):
-                got = fn()
-            got = got if isinstance(got, tuple) else (got,)
-            for r, o in zip(ref, got):
-                err = float((r - o).abs().max())
-                limit = tol if tol is not None else \
-                    WARP_GRAD_RTOL * float(r.abs().max())
-                require(err <= limit, f"{case}: {tree} differs by {err:.3e}")
-                errs[tree] = max(errs.get(tree, 0.0), err)
-        del ref, got
-        times = {"this tree": []}
-        for tree, libs in trees.items():
-            times[tree] = []
-            for first in (True, False):
-                order = (None, libs) if first else (libs, None)
-                for which in order:
-                    with launching(which):
-                        ms = time_ms(fn, iters)[0]
-                    times["this tree" if which is None else tree].append(ms)
-        print(f"  {case}: " + "  ".join(
-            f"{tree} {' '.join(f'{t:.4f}' for t in ts)} ms"
-            for tree, ts in times.items()) + "  max|other - this| " +
-            " ".join(f"{e:.3e}" for e in errs.values()) + f"  [{name_power}]")
 
 
 # --- phases 6 and 7: training ------------------------------------------------
@@ -911,9 +726,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--against", nargs="*", type=Path, default=[],
-                    help="other checkouts whose kernels phase 5b times "
-                         "beside this tree's")
     args = ap.parse_args()
     # The run uses one card: make it the only one torch sees (before CUDA
     # starts), so that the result line's count is the number of cards used.
@@ -942,7 +754,6 @@ def main() -> int:
             for line in info["log"].splitlines():
                 if "registers" in line or "Compiling entry" in line:
                     print(f"    {line.strip()}")
-        preprocess_issue_floor(device, cfg.batch_size * cfg.height * cfg.width)
     with phase("3 kernel"):
         k1 = check_kernel(device, cfg.batch_size, cfg, args.seed)
     with phase("4 serve"):
@@ -957,10 +768,6 @@ def main() -> int:
     with phase("5 warp"):
         wp = check_warp(device, cfg.batch_size, cfg, args.seed, name_power)
         check_plane_sweep(device, cfg.batch_size, args.seed, name_power)
-    if args.against:
-        with phase("5b against"):
-            against(device, {str(t): kernels_of(t) for t in args.against},
-                    cfg.batch_size, cfg, args.seed, name_power)
     with phase("6 self-supervised training"):
         ss_cfg = cfg.replace(depth_supervision_only=False)
         ss = train_selfsup(device, ss_cfg, cfg.batch_size, args.steps,

@@ -30,11 +30,10 @@
 // (B, OH, C, OW) and transposed after).  K2 has three layouts, each keeping
 // every warp-wide access at full width, with the batch on the grid's y so
 // that no pixel divides by the image size:
-//   - C = 1: one thread per pixel; out is unit-stride across a warp.
-//   - C = 3 (the training warps): one thread per pixel; the block's output
-//     tile goes through shared memory (lane t writes at 3t: no bank
-//     conflict) and leaves as consecutive 16-byte stores.  Stored straight
-//     from registers, each channel's warp-wide store spanned 384 B.
+//   - C = 1 and C = 3 (the training warps): one thread per pixel, each
+//     storing its C floats from registers; a warp's C stores cover 128·C
+//     contiguous bytes between them.  (Staging C = 3 tiles through shared
+//     memory for 16-byte stores bought 3%.)
 //   - C a multiple of 4 (the plane sweep's C = 64 feature channels): lanes
 //     over channels, C/4 lanes a pixel.  Each lane reads its float4 of each
 //     of the four taps and stores its float4, so a pixel's group reads and
@@ -96,56 +95,28 @@ __device__ __forceinline__ float lerp4(float v00, float v01, float v10,
 }
 
 // K2, one thread per output pixel.  CT > 0 fixes the channel count at
-// compile time; CT == 0 reads it from C.  CT == 3 stages the block's output
-// tile in shared memory and stores it as 16-byte chunks (out must be 16-byte
-// aligned); otherwise each thread stores its C floats.
+// compile time; CT == 0 reads it from C.
 template <int CT>
 __global__ void __launch_bounds__(kThreads)
     band_warp_fwd_pixel(const float* __restrict__ img,
                         const float* __restrict__ ix,
                         const float* __restrict__ iy, float* __restrict__ out,
                         int B, int H, int W, int C_rt, int per_image) {
-  constexpr bool kStaged = CT == 3;
   const int C = CT > 0 ? CT : C_rt;
-  // the tile, shifted by the output's offset mod 4 floats
-  __shared__ float4 stage4[kStaged ? (kThreads * CT + 3 + 3) / 4 : 1];
-  float* const stage = reinterpret_cast<float*>(stage4);
-  const int n_tiles = (per_image + kThreads - 1) / kThreads;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const float* plane = img + static_cast<long long>(b) * H * W * C;
     const long long pix0 = static_cast<long long>(b) * per_image;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int q0 = tile * kThreads;
-      const int q = q0 + threadIdx.x;
-      const long long e0 = (pix0 + q0) * C;  // the tile's first float of out
-      const int shift = static_cast<int>(e0 & 3);
-      if (q < per_image) {
-        const long long p = pix0 + q;
-        const Taps t = taps(plane, __ldg(ix + p), __ldg(iy + p), H, W, C);
-        float* o = kStaged ? stage + shift + threadIdx.x * C : out + p * C;
+    for (long long q = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+         q < per_image; q += static_cast<long long>(gridDim.x) * kThreads) {
+      const long long p = pix0 + q;
+      const Taps t = taps(plane, __ldg(ix + p), __ldg(iy + p), H, W, C);
+      float* o = out + p * C;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          o[c] = lerp4(__ldg(t.r0 + t.x0 + c), __ldg(t.r0 + t.x1 + c),
-                       __ldg(t.r1 + t.x0 + c), __ldg(t.r1 + t.x1 + c), t.fx,
-                       t.fy);
-      }
-      if (kStaged) {
-        __syncthreads();
-        // stage[j] holds out[e0 - shift + j] for j in [shift, shift + total)
-        const int total = min(kThreads, per_image - q0) * C;
-        const int chunks = (shift + total + 3) >> 2;
-        float* const dst = out + (e0 - shift);
-        for (int k = threadIdx.x; k < chunks; k += kThreads) {
-          const int j = 4 * k;
-          if (j >= shift && j + 4 <= shift + total) {
-            reinterpret_cast<float4*>(dst)[k] = stage4[k];
-          } else {
-            for (int u = max(j, shift); u < min(j + 4, shift + total); ++u)
-              dst[u] = stage[u];
-          }
-        }
-        __syncthreads();
-      }
+      for (int c = 0; c < C; ++c)
+        o[c] = lerp4(__ldg(t.r0 + t.x0 + c), __ldg(t.r0 + t.x1 + c),
+                     __ldg(t.r1 + t.x0 + c), __ldg(t.r1 + t.x1 + c), t.fx,
+                     t.fy);
     }
   }
 }
@@ -242,14 +213,14 @@ bool misaligned(const void* p) {
 extern "C" {
 
 // img (B, H, W, C), ix and iy (B, OH, OW), out (B, OH, OW, C); float32,
-// contiguous; out 16-byte aligned, and img too where C is a multiple of 4.
+// contiguous; img and out 16-byte aligned where C is a multiple of 4.
 // per_image = OH * OW, n = B * OH * OW.
 int band_warp_fwd_launch(const float* img, const float* ix, const float* iy,
                          float* out, int H, int W, int C, long long per_image,
                          long long n, void* stream) {
   if (n == 0) return 0;
   if (bad_shape(H, W, C, per_image, n) || per_image >= (1LL << 31) - kThreads ||
-      (C % 4 == 0 && misaligned(img)) || misaligned(out))
+      (C % 4 == 0 && (misaligned(img) || misaligned(out))))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long B = n / per_image;
