@@ -27,13 +27,13 @@
 // cotangent g (C floats) and the image, and writes dix, diy (8 B).  A few
 // dozen flops per pixel are far below the arithmetic rate.  f32 throughout,
 // channels last in and out, no transposes around the kernels (the TPU wrote
-// (B, OH, C, OW) and transposed after).  K2 has three layouts, each keeping
-// every warp-wide access at full width, with the batch on the grid's y so
+// (B, OH, C, OW) and transposed after).  K2 has two layouts, each keeping
+// every warp's accesses within a contiguous span, with the batch on the grid's y so
 // that no pixel divides by the image size:
 //   - C = 1 and C = 3 (the training warps): one thread per pixel, each
 //     storing its C floats from registers; a warp's C stores cover 128·C
 //     contiguous bytes between them.  (Staging C = 3 tiles through shared
-//     memory for 16-byte stores bought 3%.)
+//     memory for 16-byte stores bought 2% on the H100.)
 //   - C a multiple of 4 (the plane sweep's C = 64 feature channels): lanes
 //     over channels, C/4 lanes a pixel.  Each lane reads its float4 of each
 //     of the four taps and stores its float4, so a pixel's group reads and
