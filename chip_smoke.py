@@ -32,7 +32,26 @@ version.  One timed line per phase:
      the plain warps on the card, whose loss and gradients must match.
   7. supervised training: PUBLISHED, one warm-up and ``--steps`` timed
      steps, every loss finite, K1 once per step.
-  8. result: the kernels' JSON line, then the final JSON line.
+  8. train loop: the published supervised run through the command line,
+     ``train --synthetic 48 --num_epochs 2`` (320x480, batch 12, 4 steps
+     per epoch: the initial evaluation, 8 train steps, 2 evaluations and 2
+     checkpoints); every loss finite, metrics.jsonl with train and val
+     rows, step_8/ and config.json written, the "all" row finite over 48
+     frames, K1 once per train step, eval batch and logged image.  Then
+     ``evaluate --weights step_8`` against the fit's last table, a restore
+     into a fresh Trainer against the live state, and device_prefetch
+     against a plain copy; the loop's images/s in epoch 2 beside phase 7's
+     step alone; the host feed, from pairs of epochs run in turns, one
+     from the host cache and one over the same batches on the card; the
+     eval images/s; and a torch.profiler trace of one train step: the
+     card's idle share over the step's wall span, and its ten largest
+     device operations.
+  9. result: the kernels' JSON line, then the final JSON line.
+
+Kernel times (phases 3 and 5, and the kernels line) are taken behind a spin
+on the card (``device_ms``), so that a wrapper's host time per call does not
+hide in them; the back-to-back reading (``time_ms``) is printed beside each
+as the wrapper's host time per call.
 
 Usage: python3 chip_smoke.py [--seed N] [--requests N] [--steps N]
 Exits non-zero, printing no result, without a CUDA device.
@@ -42,10 +61,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes.util
+import importlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,7 +75,10 @@ import torch
 
 import torch.nn.functional as F
 
+from polardepth_tpu_torch import cli
 from polardepth_tpu_torch.config import PUBLISHED, Config
+from polardepth_tpu_torch.data.pipeline import BatchIterator, device_prefetch
+from polardepth_tpu_torch.data.synthetic import SyntheticHammer
 from polardepth_tpu_torch.models.convert import (
     jax_from_state_dict, state_dict_from_jax)
 from polardepth_tpu_torch.ops import band_warp, build
@@ -64,10 +89,11 @@ from polardepth_tpu_torch.ops.polar_preprocess import (
     fused_polar_preprocess, polar_preprocess_plain)
 from polardepth_tpu_torch.ops.se3 import transformation_from_parameters
 from polardepth_tpu_torch.ops.warp import grid_sample
-from polardepth_tpu_torch.train import selfsup, state
+from polardepth_tpu_torch.train import checkpoint, selfsup, state
 from polardepth_tpu_torch.train.losses import preprocess_batch
 from polardepth_tpu_torch.train.trainer import (
-    Predictor, build_model, make_train_step)
+    Predictor, Trainer, build_model, make_train_step)
+from polardepth_tpu_torch.utils import profiling
 
 # H100 SXM peaks (NVIDIA data sheet): memory rate and float32 rate outside
 # the tensor cores, at the full 700 W power limit.
@@ -105,6 +131,18 @@ STEP_GRAD_RTOL = 1e-4
 NOISE_MULT = 4.0
 # the self-supervised step warps 4 scales x 2 source frames
 WARPS_PER_STEP = 8
+# The train loop's run: PUBLISHED on 48 synthetic scenes for 2 epochs.
+LOOP_SCENES = 48
+LOOP_EPOCHS = 2
+# evaluate --weights against the fit's last table: the same weights on the
+# same frames, batched in another order, so each slice's frame sums are taken
+# in another order (relative to each entry; an entry below 1e-6 counts as 0)
+EVAL_TABLE_RTOL = 1e-5
+# The host feed: pairs of epochs (the loop's, the same batches on the card)
+FEED_PAIRS = 5
+# The profiled step's annotation, and the trace categories of device work
+STEP_SPAN = "train_step"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def require(ok: bool, what: str) -> None:
@@ -226,22 +264,38 @@ def time_ms(fn, iters: int, warmup: int = 5) -> tuple[float, float]:
 
 def device_ms(fn, iters: int) -> float:
     """Device ms per call of fn over iters back-to-back calls queued behind
-    a spin on the card (0.2 ms per call, several times a wrapper's host
-    time), so that the card runs them with no wait for the host: a
-    kernel's own time where its wrapper's host time per call is longer and
-    time_ms reads the host.  Printed beside time_ms's reading, which the
-    kernels line keeps."""
+    a spin on the card, so that the card runs them with no wait for the
+    host: a kernel's own time even where its wrapper's host time per call
+    is longer, which time_ms would read instead.  The kernels line's times.
+
+    The spin lasts 0.2 ms per call.  Where the host took longer to queue
+    the calls than the spin lasted, the card may have waited for it, and
+    the reading is taken again behind a spin of twice the host's time.  If
+    the host outlasts that spin too, its queueing grew with the spin: the
+    card's launch queue was full, so the card held the host back and did
+    not wait; the reading stands.  Anything else raises."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * 0.2 * iters))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    spin_ms = 0.2 * iters
+    for attempt in range(2):
+        spun = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        host = time.perf_counter()
+        spun.record()
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * spin_ms))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - host)
+        torch.cuda.synchronize()
+        spin_ran = spun.elapsed_time(start)
+        if host_ms < spin_ran or (attempt and host_ms >= 0.9 * spin_ran):
+            return start.elapsed_time(end) / iters
+        spin_ms = 2 * host_ms
+    raise RuntimeError(f"device_ms: the host took {host_ms:.3f} ms to queue "
+                       f"{iters} calls behind a {spin_ran:.3f} ms spin")
 
 
 def preprocess_bound_ms(n_pix: int) -> tuple[float, str]:
@@ -268,18 +322,21 @@ def check_kernel(device: torch.device, batch: int, cfg: Config,
         errors[name] = e
     pol = torch.from_numpy(
         physical_pol(rng, (batch, cfg.height, cfg.width))).to(device)
-    kernel_ms, host_ms = time_ms(lambda: fused_polar_preprocess(pol), 200)
-    plain_ms, _ = time_ms(lambda: polar_preprocess_plain(pol), 20)
+    back_to_back_ms, host_ms = time_ms(lambda: fused_polar_preprocess(pol),
+                                       200)
+    kernel_ms = device_ms(lambda: fused_polar_preprocess(pol), 200)
+    plain_ms = device_ms(lambda: polar_preprocess_plain(pol), 20)
     bound_ms, bound_by = preprocess_bound_ms(pol.numel() // 4)
-    print(f"  wrapper host time per call {host_ms:.4f} ms")
-    print(f"  kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
-          f"{bound_ms:.4f} ({bound_by})  share of bound "
-          f"{bound_ms / kernel_ms:.3f}  library_ms none  "
+    print(f"  wrapper host time per call {host_ms:.4f} ms; back to back "
+          f"{back_to_back_ms:.4f} ms per call")
+    print(f"  kernel_ms {kernel_ms:.4f} (behind a spin)  plain_ms "
+          f"{plain_ms:.4f}  bound_ms {bound_ms:.4f} ({bound_by})  share of "
+          f"bound {bound_ms / kernel_ms:.3f}  library_ms none  "
           f"[{card() if device.type == 'cuda' else device}]")
     return {"max_abs_err": max(max(e["rho"], e["phi_mod_pi"], e["priors"])
                                for e in errors.values()),
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "ms": kernel_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # --- phase 4: serve ---------------------------------------------------------
@@ -438,39 +495,39 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
                 and e["diy"] <= WARP_GRAD_RTOL * e["diy_max"],
                 f"K3 error on the {name} grid")
         t = {}
-        t["fwd"], t["fwd_host"] = time_ms(
+        t["fwd_b2b"], t["fwd_host"] = time_ms(
             lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
-        t["fwd_plain"] = time_ms(
-            lambda: band_warp.band_warp_fwd_plain(img, ix, iy), 10)[0]
-        t["bwd"], t["bwd_host"] = time_ms(
+        t["bwd_b2b"], t["bwd_host"] = time_ms(
             lambda: band_warp.band_warp_bwd(img, ix, iy, g), iters)
-        t["bwd_plain"] = time_ms(
-            lambda: band_warp.band_warp_bwd_plain(img, ix, iy, g), 10)[0]
-        t["fwd_device"] = device_ms(
+        t["fwd"] = device_ms(
             lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
-        t["bwd_device"] = device_ms(
+        t["bwd"] = device_ms(
             lambda: band_warp.band_warp_bwd(img, ix, iy, g), iters)
+        t["fwd_plain"] = device_ms(
+            lambda: band_warp.band_warp_fwd_plain(img, ix, iy), 10)
+        t["bwd_plain"] = device_ms(
+            lambda: band_warp.band_warp_bwd_plain(img, ix, iy, g), 10)
         # the library yardstick: torch's bilinear border grid_sample on the
         # same image (a channels-last view) and grid; its grid-only backward
         nchw = img.permute(0, 3, 1, 2)
-        t["fwd_library"] = time_ms(lambda: F.grid_sample(
+        t["fwd_library"] = device_ms(lambda: F.grid_sample(
             nchw, grid, mode="bilinear", padding_mode="border",
-            align_corners=True), iters)[0]
+            align_corners=True), iters)
         grid_req = grid.detach().clone().requires_grad_(True)
         lib_out = F.grid_sample(nchw, grid_req, mode="bilinear",
                                 padding_mode="border", align_corners=True)
         g_nchw = g.permute(0, 3, 1, 2)
-        t["bwd_library"] = time_ms(lambda: torch.autograd.grad(
-            lib_out, grid_req, g_nchw, retain_graph=True), iters)[0]
+        t["bwd_library"] = device_ms(lambda: torch.autograd.grad(
+            lib_out, grid_req, g_nchw, retain_graph=True), iters)
         n_out = ix.numel()
         bounds = {"fwd": warp_bound_ms(batch, h, w, c, n_out, False),
                   "bwd": warp_bound_ms(batch, h, w, c, n_out, True)}
         for k in ("fwd", "bwd"):
             bound, by = bounds[k]
             print(f"  {name:8s} {'K2' if k == 'fwd' else 'K3'} kernel_ms "
-                  f"{t[k]:.4f}  (wrapper host ms {t[k + '_host']:.4f}; "
-                  f"behind a spin {t[k + '_device']:.4f})  "
-                  f"plain_ms {t[k + '_plain']:.4f}  "
+                  f"{t[k]:.4f} behind a spin  (wrapper host ms "
+                  f"{t[k + '_host']:.4f}; back to back {t[k + '_b2b']:.4f})"
+                  f"  plain_ms {t[k + '_plain']:.4f}  "
                   f"F.grid_sample {'forward' if k == 'fwd' else 'grid backward'}"
                   f" ms {t[k + '_library']:.4f}  bound_ms {bound:.4f} ({by})"
                   f"  share of bound {bound / t[k]:.3f}  [{name_power}]")
@@ -709,7 +766,298 @@ def train_supervised(device, cfg: Config, batch_size: int, steps: int,
             "launches": launches}
 
 
-# --- phase 8 ----------------------------------------------------------------
+# --- phase 8: the training loop through the command line --------------------
+
+def decoders() -> dict:
+    """Which PNG decoders this host has: the HAMMER loader needs cv2; PIL
+    and libpng are candidates for later backends."""
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    found["libpng"] = ctypes.util.find_library("png") is not None
+    return found
+
+
+def _table_rel_diff(a: dict, b: dict) -> float:
+    """The largest relative difference between two metric tables, entry by
+    entry; entries below 1e-6 in both count as equal."""
+    worst = 0.0
+    for name, row in a.items():
+        require(row["frames"] == b[name]["frames"],
+                f"{name}: {row['frames']} frames vs {b[name]['frames']}")
+        for m, v in row.items():
+            scale = max(abs(v), abs(b[name][m]))
+            if m != "frames" and scale >= 1e-6:
+                worst = max(worst, abs(v - b[name][m]) / scale)
+    return worst
+
+
+# Device operations by kind, the first pattern of a kernel's name that
+# matches deciding (cuDNN's layout transposes before its convolutions).
+OP_KINDS = (("layout transpose", ("Transpose", "transpose", "nchwToNhwc",
+                                  "nhwcToNchw")),
+            ("batch norm", ("bn_", "batch_norm", "welford")),
+            ("convolution / matmul", ("gemm", "conv", "grad", "fprop",
+                                      "xmma", "cudnn", "winograd")),
+            ("reduction", ("reduce", "Reduce")),
+            ("copy / fill", ("Memcpy", "Memset", "copy", "fill")),
+            ("elementwise", ("elementwise", "vectorized", "unrolled",
+                             "Elementwise")))
+
+
+def device_top(prof, n: int = 10) -> dict:
+    """The device operations (kernels and copies) of a profile: the n that
+    take the most time with their shares of all device time, the shares of
+    each kind (OP_KINDS, else "other"), and the total in ms."""
+    def device_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+    ops = [(e.key, device_us(e) / 1e3) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key != STEP_SPAN]
+    total = sum(ms for _, ms in ops)
+    ops.sort(key=lambda x: -x[1])
+    kinds: dict = {}
+    for name, ms in ops:
+        kind = next((k for k, pats in OP_KINDS
+                     if any(pat in name for pat in pats)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    if total <= 0:
+        return {"top": [], "kinds": {}, "device_ms": 0.0}
+    return {"top": [(k, ms, ms / total) for k, ms in ops[:n]],
+            "kinds": {k: (ms, ms / total) for k, ms in sorted(
+                kinds.items(), key=lambda x: -x[1])},
+            "device_ms": total}
+
+
+def host_feed(trainer: Trainer, scenes: int, pairs: int) -> dict:
+    """How far the loop's host feed holds the card back: pairs of epochs
+    through trainer.train_epoch, in turns, over the same synthetic scenes
+    (trainer's geometry and seed): one from a BatchIterator whose samples
+    are all in its host cache (the loop's epoch 2: stacking, the thread
+    pool, a pageable copy per step), one over the same number of batches
+    already on the device.  Both end in the same read of the logs.
+    Returns each side's images/s and each pair's ratio, loop over alone."""
+    cfg = trainer.cfg
+    gen = SyntheticHammer(cfg.height, cfg.width, seed=cfg.seed)
+    it = BatchIterator(lambda i: gen.sample(int(i)), scenes, cfg.batch_size,
+                       shuffle=True, seed=cfg.seed,
+                       cache_bytes=int(cfg.host_cache_gb * 2 ** 30))
+    on_device = [selfsup.to_device(b, trainer.device) for b in it]
+    require(len(it._cache) == scenes, "the host cache holds "
+            f"{len(it._cache)} of {scenes} samples")
+    loop, alone = [], []
+    for _ in range(pairs):
+        loop.append(trainer.train_epoch(iter(it))["examples_per_sec"])
+        alone.append(trainer.train_epoch(on_device)["examples_per_sec"])
+    return {"loop": loop, "alone": alone,
+            "ratio": [a / b for a, b in zip(loop, alone)],
+            "steps": len(on_device)}
+
+
+def device_idle(trace_path: str, span=None, n_gaps: int = 5) -> dict:
+    """The card's idle share over one step, from one torch.profiler trace
+    (Chrome format).  The step's wall span starts at its host annotation
+    (``span``, a record_function), or without one (a trace of the card's
+    activity alone) at the host's first runtime call; it ends at the end
+    of the last device operation (kernel, copy or fill), or of the
+    annotation if that is later.  Its busy time is the union of the device
+    operations' intervals inside the span.  Also the n_gaps longest idle
+    gaps, each with the device operation that ends it and the innermost
+    host operation that launched that one, and the host's runtime calls
+    that waited on the card (a synchronize, a blocking copy) for 0.05 ms
+    or more, each with the host operations around it, innermost first."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    for e in events:
+        e["ts"], e["dur"] = float(e["ts"]), float(e.get("dur", 0.0))
+        e["cat"] = e.get("cat", "").lower()
+    runtime = [e for e in events if e["cat"] == "cuda_runtime"]
+    if span is not None:
+        marks = [e for e in events
+                 if e["cat"] == "user_annotation" and e.get("name") == span]
+        require(len(marks) == 1,
+                f"{len(marks)} '{span}' spans in {trace_path}")
+        t0 = marks[0]["ts"]
+        t1 = t0 + marks[0]["dur"]
+    else:
+        require(runtime, f"no runtime call in {trace_path}")
+        t0 = min(e["ts"] for e in runtime)
+        t1 = max(e["ts"] + e["dur"] for e in runtime
+                 if "Synchronize" not in e["name"])
+    ops = sorted((e for e in events if e["cat"] in DEVICE_CATS
+                  and e["ts"] + e["dur"] > t0), key=lambda e: e["ts"])
+    require(ops, "no device operation in the step's span")
+    end = max(t1, max(e["ts"] + e["dur"] for e in ops))
+    busy, gaps = 0.0, []
+    cur_a, cur_b = max(ops[0]["ts"], t0), ops[0]["ts"] + ops[0]["dur"]
+    gaps.append((cur_a - t0, t0, ops[0]))
+    for e in ops[1:]:
+        if e["ts"] > cur_b:
+            busy += cur_b - cur_a
+            gaps.append((e["ts"] - cur_b, cur_b, e))
+            cur_a = e["ts"]
+        cur_b = max(cur_b, e["ts"] + e["dur"])
+    busy += cur_b - cur_a
+
+    launches = {e["args"]["correlation"]: e for e in runtime
+                if "correlation" in e.get("args", {})}
+    host_ops = [e for e in events if e["cat"] == "cpu_op"]
+
+    def around(call) -> list:
+        inside = [h for h in host_ops if h.get("tid") == call.get("tid")
+                  and h["ts"] <= call["ts"] <= h["ts"] + h["dur"]]
+        return [h["name"] for h in sorted(inside, key=lambda h: h["dur"])]
+
+    def launched_by(op) -> str:
+        call = launches.get(op.get("args", {}).get("correlation"))
+        if call is None:
+            return "?"
+        return (around(call) or [call["name"]])[0]
+
+    gaps.sort(key=lambda g: -g[0])
+    waits = [e for e in runtime if t0 <= e["ts"] <= end
+             and ("Synchronize" in e["name"] or e["name"] == "cudaMemcpy")]
+    return {"span_ms": (end - t0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (end - t0),
+            "host_ms": (t1 - t0) / 1e3,
+            "first_op_ms": (max(ops[0]["ts"], t0) - t0) / 1e3,
+            "ops": len(ops),
+            "gaps": [{"at_ms": (at - t0) / 1e3, "ms": g / 1e3,
+                      "next_op": op["name"], "launched_by": launched_by(op)}
+                     for g, at, op in gaps[:n_gaps]],
+            "n_waits": len(waits),
+            "waits": [{"name": e["name"], "at_ms": (e["ts"] - t0) / 1e3,
+                       "ms": e["dur"] / 1e3, "in": around(e)[:4]}
+                      for e in waits if e["dur"] >= 50.0]}
+
+
+def train_loop(device, flags=(), scenes: int = LOOP_SCENES,
+               epochs: int = LOOP_EPOCHS) -> dict:
+    """The command line's train command in-process on ``scenes`` synthetic
+    scenes for ``epochs`` epochs (PUBLISHED unless flags say otherwise),
+    its checks, evaluate --weights on the last checkpoint, a restore into a
+    fresh Trainer, device_prefetch against a plain copy, the eval rate and,
+    on the card, a profile of one train step."""
+    device = torch.device(device)
+    common = ["--synthetic", str(scenes), "--device", str(device), *flags]
+    out = {"decoders": decoders()}
+    with tempfile.TemporaryDirectory() as tmp:
+        build.reset_launch_counts()
+        start = time.perf_counter()
+        live, results = cli.train([*common, "--num_epochs", str(epochs),
+                                   "--log_dir", tmp])
+        out["wall_s"] = time.perf_counter() - start
+        launches = dict(build.launch_counts)
+        cfg = live.cfg
+        run = os.path.join(tmp, cfg.model_name)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        train_rows = [r for r in rows if r["mode"] == "train"]
+        require(len(train_rows) == epochs and any(r["mode"] == "val"
+                                                  for r in rows),
+                f"metrics.jsonl modes {[r['mode'] for r in rows]}")
+        losses = [r["loss"] for r in train_rows]
+        require(all(np.isfinite(v) for r in train_rows for k, v in r.items()
+                    if k.startswith("loss")), f"non-finite loss in {rows}")
+        spe = scenes // cfg.batch_size
+        steps = spe * epochs
+        ckdir = os.path.join(run, "checkpoints")
+        step_dir = os.path.join(ckdir, f"step_{steps}")
+        require(os.path.isfile(os.path.join(step_dir, checkpoint.STATE_FILE))
+                and os.path.isfile(os.path.join(ckdir, "config.json")),
+                f"no {step_dir} or config.json")
+        last = results[f"epoch_{epochs - 1}"]
+        require(last["all"]["frames"] == scenes
+                and all(np.isfinite(v) for v in last["all"].values()),
+                f"the last table's 'all' row {last['all']}")
+        counts = dict(live.counts)
+        require(counts["train_steps"] == steps
+                and counts["eval_batches"] == spe * (1 + epochs),
+                f"counts {counts}")
+        # K1 runs once per train step, eval batch and logged image's
+        # prediction; on the CPU never
+        want = sum(counts.values()) if device.type == "cuda" else 0
+        require(launches == {"polar_preprocess": want, "band_warp_fwd": 0,
+                             "band_warp_bwd": 0},
+                f"train loop launches {launches}, expected {want} of K1")
+
+        _, table = cli.evaluate([*common, "--weights", step_dir])
+        out["eval_rel_diff"] = _table_rel_diff(table, last)
+        require(out["eval_rel_diff"] <= EVAL_TABLE_RTOL,
+                f"evaluate --weights vs the fit's last table: "
+                f"{out['eval_rel_diff']:.3e}")
+
+        with open(os.path.join(ckdir, "config.json")) as f:
+            fresh = Trainer(Config.from_json(f.read()), spe, device=device,
+                            log_fn=lambda *_: None)
+        checkpoint.restore(step_dir, fresh.state)
+        gen = SyntheticHammer(cfg.height, cfg.width, seed=cfg.seed)
+        host = [gen.batch(cfg.batch_size, start=i * cfg.batch_size)
+                for i in range(spe)]
+        require(np.array_equal(live.predict(host[0]), fresh.predict(host[0])),
+                "restored predictions differ from the live state's")
+        a = live.state.optimizer.state_dict()["state"]
+        b = fresh.state.optimizer.state_dict()["state"]
+        require(fresh.state.step == live.state.step == steps
+                and a.keys() == b.keys()
+                and all(torch.equal(a[i][k].cpu(), b[i][k].cpu()) for i in a
+                        for k in ("step", "exp_avg", "exp_avg_sq")),
+                "restored Adam moments differ from the live state's")
+
+        moved = list(device_prefetch(iter(host[:2]), device))
+        require(len(moved) == 2 and all(
+            torch.equal(m[k], torch.as_tensor(h[k]).to(device))
+            for m, h in zip(moved, host[:2]) for k in h),
+            "device_prefetch bytes differ from a plain copy")
+
+        fresh.evaluate(host)                        # warm-up
+        start = time.perf_counter()
+        fresh.evaluate(host)                        # fetches its table
+        out["eval_images_per_s"] = spe * cfg.batch_size / (
+            time.perf_counter() - start)
+
+        out["profile"] = out["feed"] = None
+        if device.type == "cuda":
+            out["feed"] = host_feed(live, scenes, FEED_PAIRS)
+            # the step's wall time unprofiled, from a synchronize to one
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                live.train_step(host[0])
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - start))
+            out["step_wall_ms"] = walls
+            # under the profiler, host and card: once to start the tracer
+            # (discarded), once read; then the card's activity alone, which
+            # slows the host less
+            for i in range(2):
+                with profiling.trace(os.path.join(tmp, f"trace{i}")) as prof:
+                    with torch.profiler.record_function(STEP_SPAN):
+                        live.train_step(host[0])
+            out["profile"] = device_top(prof)
+            out["idle"] = device_idle(
+                os.path.join(tmp, "trace1", "trace.json"), STEP_SPAN)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as card_only:
+                live.train_step(host[0])
+                torch.cuda.synchronize()
+            card_only.export_chrome_trace(os.path.join(tmp, "card.json"))
+            out["idle_card"] = device_idle(os.path.join(tmp, "card.json"))
+    out.update({"losses": losses, "launches": launches, "counts": counts,
+                "steps": steps,
+                "loop_images_per_s": train_rows[-1]["examples_per_sec"],
+                "all": last["all"]})
+    return out
+
+
+# --- phase 9 ----------------------------------------------------------------
 
 def result_line(device) -> dict:
     device = torch.device(device)
@@ -797,7 +1145,75 @@ def main() -> int:
               f"[{name_power}]")
         print(f"  losses {['%.6f' % x for x in sv['losses']]}")
         print(f"  launches {sv['launches']}")
-    with phase("8 result"):
+    with phase("8 train loop"):
+        lp = train_loop(device)
+        print(f"  decoders that import: {lp['decoders']}")
+        print(f"  train --synthetic {LOOP_SCENES} --num_epochs {LOOP_EPOCHS}"
+              f" ({cfg.batch_size}x{cfg.height}x{cfg.width}, "
+              f"{lp['steps']} steps): {lp['wall_s']:.2f} s in all  "
+              f"[{name_power}]")
+        print(f"  losses per epoch {['%.6f' % x for x in lp['losses']]}; "
+              f"last table's all row {lp['all']}")
+        print(f"  launches {lp['launches']} = train steps + eval batches + "
+              f"logged images' predictions {lp['counts']}")
+        print(f"  evaluate --weights step_{lp['steps']} vs the fit's last "
+              f"table: largest relative difference {lp['eval_rel_diff']:.3e}"
+              f" (limit {EVAL_TABLE_RTOL})")
+        print("  restore into a fresh Trainer: predictions and Adam moments "
+              "bit-identical; device_prefetch: the same bytes as .to()")
+        print(f"  loop images/s in epoch 2 (cached samples) "
+              f"{lp['loop_images_per_s']:.2f} vs phase 7's step alone "
+              f"{sv['images_per_s']:.2f} (ratio "
+              f"{lp['loop_images_per_s'] / sv['images_per_s']:.3f})  "
+              f"[{name_power}]")
+        fd = lp["feed"]
+        print(f"  host feed, {FEED_PAIRS} pairs of {fd['steps']}-step epochs "
+              f"in turns: loop (cached samples) "
+              f"{['%.2f' % x for x in fd['loop']]} images/s, the same "
+              f"batches on the card {['%.2f' % x for x in fd['alone']]}; "
+              f"ratio per pair {['%.4f' % x for x in fd['ratio']]} (median "
+              f"{np.median(fd['ratio']):.4f}, range {min(fd['ratio']):.4f}"
+              f"-{max(fd['ratio']):.4f})  [{name_power}]")
+        print(f"  eval images/s {lp['eval_images_per_s']:.2f}  "
+              f"[{name_power}]")
+        prof = lp["profile"]
+        if prof and prof["top"]:
+            idle, lean = lp["idle"], lp["idle_card"]
+            print(f"  one train step of the loop, unprofiled, synchronize to "
+                  f"synchronize: {['%.2f' % x for x in lp['step_wall_ms']]}"
+                  f" ms  [{name_power}]")
+            for what, d in (("the card's activity alone", lean),
+                            ("host and card", idle)):
+                print(f"  the same step under torch.profiler ({what}): wall "
+                      f"span {d['span_ms']:.2f} ms (from the step's start "
+                      f"on the host to the last device operation's end), "
+                      f"device busy "
+                      f"{d['busy_ms']:.2f} ms (union of {d['ops']} "
+                      f"operations), idle share {d['idle_share']:.4f}; the "
+                      f"host queues the step in {d['host_ms']:.2f} ms, the "
+                      f"first device operation starts {d['first_op_ms']:.3f}"
+                      f" ms in  [{name_power}]")
+            print(f"  summed device time (host and card) "
+                  f"{prof['device_ms']:.2f} ms; its longest idle gaps:")
+            for g in idle["gaps"]:
+                print(f"    {g['ms']:.3f} ms at {g['at_ms']:.2f} ms, before "
+                      f"{g['next_op'][:60]} (launched in "
+                      f"{g['launched_by'][:60]})")
+            print(f"  host calls that wait on the card: {idle['n_waits']}; "
+                  f"those of 0.05 ms or more:")
+            for w in idle["waits"]:
+                print(f"    {w['name']} {w['ms']:.3f} ms at {w['at_ms']:.2f}"
+                      f" ms, in {w['in']}")
+            print("  by kind: " + "; ".join(
+                f"{k} {ms:.2f} ms ({100 * sh:.1f}%)"
+                for k, (ms, sh) in prof["kinds"].items()))
+            print("  the ten largest device operations:")
+            for name, ms, share in prof["top"]:
+                print(f"    {ms:9.3f} ms  {100 * share:5.1f}%  {name[:110]}")
+        else:
+            print("  profile of one train step: the profiler recorded no "
+                  "device operation")
+    with phase("9 result"):
         par = wp["parallax"]
         warp_err = max(max(v["errors"]["out"], v["errors"]["dix"],
                            v["errors"]["diy"]) for v in wp.values())
@@ -807,7 +1223,8 @@ def main() -> int:
             "replaces": "polardepth_tpu/ops/pallas/polar_preprocess.py:239",
             "launches": s["launches"]["polar_preprocess"],
             "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-            "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+            "host_ms": k1["host_ms"], "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"], "library_ms": None}]
         for name, k, line in (("band_warp_fwd", "fwd", 376),
                               ("band_warp_bwd", "bwd", 417)):
@@ -816,7 +1233,8 @@ def main() -> int:
                 "source": "polardepth_tpu_torch/csrc/band_warp.cu",
                 "replaces": f"polardepth_tpu/ops/pallas/band_warp.py:{line}",
                 "launches": ss["launches"][name], "max_abs_err": warp_err,
-                "ms": par["times"][k], "plain_ms": par["times"][k + "_plain"],
+                "ms": par["times"][k], "host_ms": par["times"][k + "_host"],
+                "plain_ms": par["times"][k + "_plain"],
                 "bound_ms": par["bounds"][k][0],
                 "bound_by": par["bounds"][k][1],
                 "library_ms": par["times"][k + "_library"]})

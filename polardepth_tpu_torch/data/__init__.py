@@ -1,1 +1,2 @@
-"""On-device data augmentation of the port."""
+"""Data of the port: synthetic scenes, the HAMMER loader, the batch
+pipeline and the on-device augmentation."""

@@ -91,7 +91,9 @@ class TorchConv(nn.Module):
 
 class ReflectConv(nn.Module):
     """Reflection pad + valid 3x3 conv (reference Conv3x3,
-    layers.py:345-380)."""
+    layers.py:345-380).  An axis of length 1 (the deepest decoder level of
+    a 32-pixel image) pads by repeating its element, as the JAX package's
+    jnp.pad(mode="reflect") does; torch's reflection pad refuses it."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -99,7 +101,12 @@ class ReflectConv(nn.Module):
                                 padding_mode="reflect")
 
     def forward(self, x):
-        return self.Conv_0(x)
+        h, w = x.shape[-2:]
+        if h > 1 and w > 1:
+            return self.Conv_0(x)
+        x = F.pad(x, (1, 1, 0, 0), mode="reflect" if w > 1 else "replicate")
+        x = F.pad(x, (0, 0, 1, 1), mode="reflect" if h > 1 else "replicate")
+        return F.conv2d(x, self.Conv_0.weight, self.Conv_0.bias)
 
 
 class ConvBlockELU(nn.Module):

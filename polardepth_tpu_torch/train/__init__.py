@@ -1,1 +1,2 @@
-"""Serving of the port: batch preprocessing and the inference step."""
+"""Training and serving of the port: the steps, the training loop and
+checkpoints."""
