@@ -6,8 +6,11 @@ batch 12, seeded random weights) through ``Predictor.predict``, trains the
 self-supervised + depth-supervised model (``make_selfsup_train_step``), the
 published supervised model (``make_train_step``) and the ManyDepth
 teacher-student model (``make_student_train_step``) for a few steps at the
-same geometry, and holds every CUDA kernel of those paths against its plain
-torch version.  One timed line per phase:
+same geometry, takes the published model in and out of the port (a
+``torch.export`` program, reference .pth files, ImageNet-shaped encoder
+weights, point clouds, the analysis report and the AR GIF), and holds every
+CUDA kernel of those paths against its plain torch version.  One timed line
+per phase:
 
   1. device: the card's name and power limit; TF32 off for convolutions and
      matrix products, so float32 means float32.
@@ -59,7 +62,17 @@ torch version.  One timed line per phase:
      the command line's ``train --train_student --synthetic 24
      --num_epochs 2`` and ``train --depth_supervision_only false
      --synthetic 12 --num_epochs 1``.
- 10. result: the kernels' JSON line, then the final JSON line.
+ 10. deploy: the published model exported with a symbolic batch
+     (eval/export.py: exactly one polar-preprocess operator node), saved,
+     loaded fresh and held against ``Predictor`` at batch 12 and 3 (K1
+     once per call), then both timed in turns; reference .pth files
+     written from the same weights through ``evaluate
+     --reference_weights --save_pred_disps`` against ``evaluate
+     --weights``; ``train --weights_init pretrained`` for two steps from a
+     seeded torchvision-shaped .npz, its grafted leaves checked; and
+     ``pointcloud``, ``analyze`` and ``ar`` on the card's predictions,
+     their files checked.
+ 11. result: the kernels' JSON line, then the final JSON line.
 
 Kernel times (phases 3 and 5, and the kernels line) are taken behind a spin
 on the card (``device_ms``), so that a wrapper's host time per call does not
@@ -78,6 +91,7 @@ import ctypes.util
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,9 +106,14 @@ from polardepth_tpu_torch import cli
 from polardepth_tpu_torch.config import PUBLISHED, Config
 from polardepth_tpu_torch.data.pipeline import BatchIterator, device_prefetch
 from polardepth_tpu_torch.data.synthetic import SyntheticHammer
+from polardepth_tpu_torch.eval.export import (
+    load_artifact, make_export, preprocess_nodes, save_artifact)
+from polardepth_tpu_torch.eval.pointcloud import read_ply
 from polardepth_tpu_torch.models import cost_volume
 from polardepth_tpu_torch.models.convert import (
     jax_from_state_dict, state_dict_from_jax)
+from polardepth_tpu_torch.models.reference_import import (
+    load_reference_components)
 from polardepth_tpu_torch.ops import band_warp, build
 from polardepth_tpu_torch.ops.camera import backproject_depth, project_3d
 from polardepth_tpu_torch.ops.depth import disp_to_depth
@@ -1405,7 +1424,320 @@ def student_cli(device, runs=STUDENT_CLI) -> list[dict]:
     return out
 
 
-# --- phase 10 ---------------------------------------------------------------
+# --- phase 10: deploy -------------------------------------------------------
+
+# The loaded program against Predictor on the same weights and inputs: the
+# same operations, the same kernel and the same cuDNN calls, so bit for bit
+# expected; the limit is relative to each depth.
+EXPORT_RTOL = 1e-6
+# The AR sweep's frames (the reference's default); the GIF holds the sweep
+# forward, then reversed, at 300 ms a frame (cli.ar)
+AR_FRAMES = 30
+AR_FRAME_MS = 300
+# Adam's first two bias-corrected steps move each parameter by at most the
+# learning rate and 1.0014 of it (the default betas), so a grafted leaf stays
+# within this many learning rates of the .npz
+ADAM_TWO_STEPS = 2.01
+
+# The reference's module names of a PolarDepthNet state_dict (reference
+# pre_encoders.py, depth_decoder.py, resnet_encoder.py): the inverse of
+# models/reference_import.py, written here apart from it.
+_REF_CONV_BLOCK = {
+    "TorchConv_0.Conv_0.weight": "conv.weight",
+    "TorchConv_0.Conv_0.bias": "conv.bias",
+    "BatchNorm_0.weight": "bn.weight", "BatchNorm_0.bias": "bn.bias",
+    "BatchNorm_0.running_mean": "bn.running_mean",
+    "BatchNorm_0.running_var": "bn.running_var"}
+_REF_SHALLOW = {"ConvBNReLUDrop_0": "Conv1", "ResidualBlock_0": "ResBlock1",
+                "ConvBNReLUDrop_1": "Conv2", "ResidualBlock_1": "ResBlock2",
+                "ConvBNReLUDrop_2": "Conv3", "ResidualBlock_2": "ResBlock3"}
+_REF_JOINT = {"ConvBNReLUDrop_0": "fc1", "ConvBNReLUDrop_1": "fc2",
+              "ConvBNReLUDrop_2": "Conv1", "ConvBNReLUDrop_3": "Conv2",
+              **{f"ResidualBlock_{i}": f"ResBlock{i + 1}" for i in range(6)}}
+_REF_RESNET = {"Conv_0": "conv1", "BatchNorm_0": "bn1", "Conv_1": "conv2",
+               "BatchNorm_1": "bn2", "Conv_2": "downsample.0",
+               "BatchNorm_2": "downsample.1"}
+
+
+def _ref_pre_encoder_key(rest: str, blocks: dict) -> str:
+    """'ResidualBlock_1.ConvBNReLUDrop_0.BatchNorm_0.weight' ->
+    'ResBlock2.conv1.bn.weight'."""
+    block, rest = rest.split(".", 1)
+    theirs = blocks[block]
+    if block.startswith("ResidualBlock_"):
+        sub, rest = rest.split(".", 1)
+        theirs += f".conv{int(sub.rsplit('_', 1)[1]) + 1}"
+    return f"{theirs}.{_REF_CONV_BLOCK[rest]}"
+
+
+def reference_key(key: str, scales) -> tuple[str, str] | None:
+    """A state_dict key of PolarDepthNet in the separate-encoder layout ->
+    (component file, the reference's key); None for a BatchNorm's batch
+    count, which the import does not read."""
+    comp, rest = key.split(".", 1)
+    if rest.endswith("num_batches_tracked"):
+        return None
+    if comp == "normals_encoder":
+        return comp, _ref_pre_encoder_key(
+            rest.removeprefix("ShallowEncoder_0."), _REF_SHALLOW)
+    if comp == "xolp_encoder":
+        return comp, _ref_pre_encoder_key(rest, _REF_SHALLOW)
+    if comp == "joint_encoder":
+        return comp, _ref_pre_encoder_key(rest, _REF_JOINT)
+    if comp == "rgb_encoder":
+        parts = rest.split(".")
+        if parts[0].startswith("BasicBlock_"):
+            i = int(parts[0].rsplit("_", 1)[1])
+            return comp, (f"encoder.layer{i // 2 + 1}.{i % 2}."
+                          f"{_REF_RESNET[parts[1]]}.{parts[2]}")
+        return comp, f"encoder.{_REF_RESNET[parts[0]]}.{parts[1]}"
+    if comp == "mono_depth":
+        name, rest = rest.split(".", 1)
+        k = int(name.rsplit("_", 1)[1])
+        leaf = rest.rsplit(".", 1)[1]
+        if name.startswith("ConvBlockELU_"):
+            return comp, f"decoder.{k}.conv.conv.{leaf}"
+        scale = sorted(scales, reverse=True)[k]
+        return comp, f"decoder.{10 + list(scales).index(scale)}.conv.{leaf}"
+    raise KeyError(key)
+
+
+def write_reference_pth(state_dict: dict, cfg: Config, out_dir: str) -> list:
+    """The reference's per-component .pth files (weights_<epoch>/) of a
+    PolarDepthNet state_dict; returns the components written."""
+    params, stats = jax_from_state_dict(state_dict, fused_encoders=False)
+    files: dict = {}
+    for key, value in state_dict_from_jax(params, stats,
+                                          fused_encoders=False).items():
+        ref = reference_key(key, tuple(cfg.scales))
+        if ref is not None:
+            files.setdefault(ref[0], {})[ref[1]] = value
+    for comp, sd in files.items():
+        torch.save(sd, os.path.join(out_dir, f"{comp}.pth"))
+    return sorted(files)
+
+
+def pretrained_npz(path: str, seed: int) -> dict:
+    """Seeded random weights under the keys of torchvision's resnet18
+    state_dict, as scripts/convert_torch_resnet18.py writes them."""
+    rng = np.random.default_rng(seed)
+    raw = {}
+
+    def conv(name, cout, cin, k):
+        raw[name] = rng.normal(0, 0.05, (cout, cin, k, k)).astype(np.float32)
+
+    def bn(prefix, c):
+        raw[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        raw[f"{prefix}.bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+        raw[f"{prefix}.running_mean"] = rng.normal(0, 0.1, c).astype(
+            np.float32)
+        raw[f"{prefix}.running_var"] = rng.uniform(0.5, 1.5, c).astype(
+            np.float32)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for layer, c in enumerate((64, 128, 256, 512), start=1):
+        for b in range(2):
+            first = cin if b == 0 else c
+            conv(f"layer{layer}.{b}.conv1.weight", c, first, 3)
+            bn(f"layer{layer}.{b}.bn1", c)
+            conv(f"layer{layer}.{b}.conv2.weight", c, c, 3)
+            bn(f"layer{layer}.{b}.bn2", c)
+            if b == 0 and first != c:
+                conv(f"layer{layer}.{b}.downsample.0.weight", c, first, 1)
+                bn(f"layer{layer}.{b}.downsample.1", c)
+        cin = c
+    raw["fc.weight"] = rng.normal(0, 0.01, (1000, 512)).astype(np.float32)
+    raw["fc.bias"] = np.zeros(1000, np.float32)
+    np.savez(path, **raw)
+    return raw
+
+
+def _rgb_encoder_source() -> dict:
+    """The torchvision key of each parameter and statistic of the shallow
+    RGB encoder (the forward map of reference_key)."""
+    cfg = PUBLISHED
+    out = {}
+    for key in build_model(cfg).state_dict():
+        if key.startswith("rgb_encoder."):
+            ref = reference_key(key, cfg.scales)
+            if ref is not None:
+                out[key] = ref[1].removeprefix("encoder.")
+    return out
+
+
+def gif_durations(path: str) -> list:
+    """The display time of each stored frame of a GIF, in ms."""
+    from PIL import Image, ImageSequence
+    with Image.open(path) as im:
+        return [f.info["duration"] for f in ImageSequence.Iterator(im)]
+
+
+def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
+           seed: int = 0, ar_frames: int = AR_FRAMES) -> dict:
+    """The published model in and out of the port through its entry points:
+    an exported program with a symbolic batch, saved and loaded fresh,
+    against Predictor at the published batch and at 3, then both timed in
+    turns; reference .pth files of the same weights through evaluate
+    --reference_weights (and --save_pred_disps) against evaluate --weights;
+    ImageNet-shaped ResNet18 weights through train --weights_init
+    pretrained; and pointcloud, analyze and ar on the predictions."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed + 10)
+    weights = seeded_state_dict(cfg, seed)
+    common = ["--height", str(cfg.height), "--width", str(cfg.width),
+              "--batch_size", str(cfg.batch_size), "--device", str(device)]
+    quiet = {"log_fn": lambda *_: None}
+    out = {}
+    build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        program = make_export(cfg, weights, device=device)
+        out["export_s"] = time.perf_counter() - start
+        out["nodes"] = preprocess_nodes(program)
+        require(out["nodes"] == 1, f"the exported graph holds {out['nodes']}"
+                " polar-preprocess nodes, expected 1")
+        path = os.path.join(tmp, "model.pt2")
+        save_artifact(program, path, cfg)
+        with open(path + ".json") as f:
+            out["meta"] = json.load(f)
+        del program
+        loaded = load_artifact(path).module()
+        predictor = Predictor(cfg, weights, device=device)
+
+        def run_program(batch):
+            return loaded(*(torch.as_tensor(batch[k]).to(device)
+                            for k in ("color", "pol"))).cpu().numpy()
+
+        out["rel_err"] = {}
+        for b in (cfg.batch_size, 3):
+            batch = random_batch(rng, b, cfg)
+            before = build.launch_counts["polar_preprocess"]
+            got = run_program(batch)
+            added = build.launch_counts["polar_preprocess"] - before
+            require(added == int(on_card), f"the loaded program launched K1 "
+                    f"{added} times in one call at batch {b}")
+            want = predictor.predict(batch)
+            require(got.shape == want.shape == (b, cfg.height, cfg.width, 1),
+                    f"program depth {got.shape}, Predictor's {want.shape}")
+            err = float(np.max(np.abs(got - want) / np.abs(want)))
+            out["rel_err"][b] = err
+            require(err <= EXPORT_RTOL, f"loaded program vs Predictor at "
+                    f"batch {b}: relative error {err:.3e}")
+
+        batch = random_batch(rng, cfg.batch_size, cfg)
+        run_program(batch)
+        predictor.predict(batch)
+        out["program_ms"], out["predictor_ms"] = [], []
+        for _ in range(requests):
+            for fn, key in ((run_program, "program_ms"),
+                            (predictor.predict, "predictor_ms")):
+                start = time.perf_counter()
+                fn(batch)
+                out[key].append(1e3 * (time.perf_counter() - start))
+        del loaded, predictor
+
+        # reference .pth files of the same weights
+        ref_dir = os.path.join(tmp, "weights_ref")
+        os.makedirs(ref_dir)
+        out["components"] = write_reference_pth(weights, cfg, ref_dir)
+        model = build_model(cfg)
+        load_reference_components(ref_dir, model, log=lambda *_: None)
+        require(all(torch.equal(v, weights[k])
+                    for k, v in model.state_dict().items()),
+                "the .pth files do not load back to the weights")
+        trainer = Trainer(cfg, 1, device=device, **quiet)
+        trainer.model.load_state_dict(weights)
+        step_dir = checkpoint.save(os.path.join(tmp, "ckpt"), trainer.state,
+                                   cfg)
+        del trainer
+        one_batch = [*common, "--synthetic", str(cfg.batch_size)]
+        _, by_weights = cli.evaluate([*one_batch, "--weights", step_dir])
+        disp_dir = os.path.join(tmp, "disps")
+        _, by_ref = cli.evaluate([*one_batch, "--reference_weights", ref_dir,
+                                  "--save_pred_disps", "--eval_out_dir",
+                                  disp_dir])
+        out["ref_rel_diff"] = _table_rel_diff(by_ref, by_weights)
+        require(out["ref_rel_diff"] <= EVAL_TABLE_RTOL,
+                f"evaluate --reference_weights vs --weights: "
+                f"{out['ref_rel_diff']:.3e}")
+        disps = np.load(os.path.join(
+            disp_dir, f"disps_{cfg.dataset}_{cfg.split}_split.npy"))
+
+        # ImageNet-shaped weights into the RGB encoder, then two steps
+        npz = os.path.join(tmp, "resnet18.npz")
+        raw = pretrained_npz(npz, seed)
+        sources = _rgb_encoder_source()
+        init = Trainer(cfg.replace(weights_init="pretrained",
+                                   pretrained_weights_path=npz), 1,
+                       device=device, **quiet).model.state_dict()
+        require(all(np.array_equal(init[k].cpu().numpy(), raw[t])
+                    for k, t in sources.items()),
+                "weights_init pretrained: a grafted leaf differs from the "
+                ".npz")
+        trained, _ = cli.train([
+            *common, "--synthetic", str(2 * cfg.batch_size), "--num_epochs",
+            "1", "--log_dir", os.path.join(tmp, "pre"), "--weights_init",
+            "pretrained", "--pretrained_weights_path", npz])
+        require(trained.state.step == 2, f"{trained.state.step} steps")
+        sd = trained.model.state_dict()
+        moved = {k: float(np.abs(sd[k].cpu().numpy() - raw[t]).max())
+                 for k, t in sources.items() if "running" not in k}
+        out["pretrained_moved"] = max(moved.values())
+        require(0 < out["pretrained_moved"]
+                <= ADAM_TWO_STEPS * cfg.learning_rate,
+                f"grafted leaves moved by up to {out['pretrained_moved']:.3e}"
+                f" in two steps (limit {ADAM_TWO_STEPS} x lr)")
+        del trained
+
+        # pointcloud -> analyze -> ar on the predictions
+        pc_dir = os.path.join(tmp, "pc")
+        depth = cli.pointcloud([*one_batch, "--weights", step_dir, "--out",
+                                pc_dir])
+        # the same frames, in the order of the iterator's next epoch
+        require(disps.shape == depth.shape and all(
+            any(np.allclose(d, 1.0 / e, rtol=EXPORT_RTOL, atol=0)
+                for e in depth) for d in disps),
+            "--save_pred_disps differs from 1 / pointcloud's depth")
+        points = [len(read_ply(os.path.join(pc_dir, f"cloud_{i:03d}.ply"))[0])
+                  for i in range(depth.shape[0])]
+        valid = [int((d > 0).sum()) for d in depth]
+        require(points == valid, f"PLY points {points}, valid pixels {valid}")
+        with open(cli.analyze(["--pred_dir", pc_dir])) as f:
+            rows = [ln for ln in f if ln.startswith("| 0")]
+        require(len(rows) == depth.shape[0],
+                f"{len(rows)} report rows for {depth.shape[0]} frames")
+        gif = cli.ar(["--pred_dir", pc_dir, "--num_frames", str(ar_frames)])
+        durations = gif_durations(gif)
+        # PIL merges identical consecutive frames and adds their durations
+        require(sum(durations) == 2 * ar_frames * AR_FRAME_MS,
+                f"GIF durations {durations}")
+        # the same sweep with the ground truth as the prediction, across
+        # the middle of the frame: the logo shows and moves, so every
+        # frame differs from the one before but at the sweep's turn
+        for tag in ("rgb", "mask", "depth_gt"):
+            shutil.copy(os.path.join(pc_dir, f"000_{tag}.png"),
+                        os.path.join(pc_dir, f"gt_{tag}.png"))
+        shutil.copy(os.path.join(pc_dir, "000_depth_gt.png"),
+                    os.path.join(pc_dir, "gt_depth_pred.png"))
+        gt_durations = gif_durations(cli.ar([
+            "--pred_dir", pc_dir, "--name", "gt", "--out",
+            os.path.join(pc_dir, "gt.gif"), "--num_frames", str(ar_frames),
+            "--y_start", str(cfg.height // 2), "--x_start",
+            str(cfg.width // 4)]))
+        require(len(gt_durations) == 2 * ar_frames - 1,
+                f"the ground truth's GIF has {len(gt_durations)} distinct "
+                f"frames, expected {2 * ar_frames - 1}")
+        out.update(points=points, report_rows=len(rows),
+                   gif_frames=len(durations), gif_ms=sum(durations),
+                   gt_gif_frames=len(gt_durations))
+    out["launches"] = dict(build.launch_counts)
+    return out
+
+
+# --- phase 11 ---------------------------------------------------------------
 
 def result_line(device) -> dict:
     device = torch.device(device)
@@ -1607,7 +1939,37 @@ def main() -> int:
                   f"losses per epoch {['%.6f' % x for x in r['losses']]}, "
                   f"last table's all row abs_rel {r['all']['abs_rel']:.5f}, "
                   f"launches {r['launches']}  [{name_power}]")
-    with phase("10 result"):
+    with phase("10 deploy"):
+        dp = deploy(device, cfg, requests=args.requests, seed=args.seed)
+        m = dp["meta"]
+        print(f"  export {dp['export_s']:.2f} s: {dp['nodes']} "
+              f"polar_preprocess node, inputs {m['inputs']}, output "
+              f"{m['output']}, platforms {m['platforms']}")
+        errs = ", ".join(f"batch {b} {e:.3e}"
+                         for b, e in dp["rel_err"].items())
+        print(f"  loaded program vs Predictor, max relative error: {errs} "
+              f"(limit {EXPORT_RTOL}); K1 once per call")
+        print(f"  {args.requests} requests of {cfg.batch_size}x{cfg.height}x"
+              f"{cfg.width} in turns: loaded program "
+              f"{np.median(dp['program_ms']):.2f} ms (median; "
+              f"{['%.2f' % x for x in dp['program_ms']]}), Predictor "
+              f"{np.median(dp['predictor_ms']):.2f} ms "
+              f"({['%.2f' % x for x in dp['predictor_ms']]})  [{name_power}]")
+        print(f"  reference .pth {dp['components']}: evaluate "
+              f"--reference_weights vs --weights, largest relative "
+              f"difference {dp['ref_rel_diff']:.3e} (limit "
+              f"{EVAL_TABLE_RTOL}); --save_pred_disps = 1 / depth")
+        print(f"  weights_init pretrained: the RGB encoder's grafted leaves "
+              f"equal the .npz, then moved by at most "
+              f"{dp['pretrained_moved']:.3e} in two steps")
+        print(f"  pointcloud: PLY points {dp['points']} = valid pixels; "
+              f"analyze: {dp['report_rows']} frame rows; ar: a GIF of "
+              f"{dp['gif_frames']} distinct frames, {dp['gif_ms']} ms = "
+              f"2 x {AR_FRAMES} frames x {AR_FRAME_MS} ms; with the ground "
+              f"truth as the prediction {dp['gt_gif_frames']} distinct "
+              f"frames")
+        print(f"  launches {dp['launches']}")
+    with phase("11 result"):
         par = wp["parallax"]
         warp_err = max(max(v["errors"]["out"], v["errors"]["dix"],
                            v["errors"]["diy"]) for v in wp.values())
@@ -1615,7 +1977,8 @@ def main() -> int:
             "name": "polar_preprocess", "route": "cuda",
             "source": "polardepth_tpu_torch/csrc/polar_preprocess.cu",
             "replaces": "polardepth_tpu/ops/pallas/polar_preprocess.py:239",
-            "launches": s["launches"]["polar_preprocess"],
+            "launches": (s["launches"]["polar_preprocess"]
+                         + dp["launches"]["polar_preprocess"]),
             "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
             "host_ms": k1["host_ms"], "plain_ms": k1["plain_ms"],
             "bound_ms": k1["bound_ms"],

@@ -5,6 +5,16 @@
         self-supervised one, or with --train_student the ManyDepth
         teacher-student one
   python -m polardepth_tpu_torch evaluate [flags]  - per-material eval table
+        of --weights (a checkpoint) or --reference_weights (the
+        reference's .pth files); --save_pred_disps writes the disparities
+  python -m polardepth_tpu_torch pointcloud [flags] - PLY clouds and the
+        prediction PNGs of one eval batch
+  python -m polardepth_tpu_torch export [flags]     - the preprocess and
+        infer graph as one torch.export program (.pt2)
+  python -m polardepth_tpu_torch analyze --pred_dir D - per-frame error
+        heatmaps and a per-material RMS report from pointcloud's PNGs
+  python -m polardepth_tpu_torch ar --pred_dir D    - the depth-aware AR
+        occlusion GIF from pointcloud's PNGs
 
 Flag names are those of the JAX package's CLI (the reference's
 MonodepthOptions, options.py:13-380), for every field of the port's Config,
@@ -17,6 +27,7 @@ instead of being ignored.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -40,7 +51,8 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
     d = Config()
     for name in ("data_path", "data_path_val", "log_dir", "model_name",
                  "dataset", "split", "eval_split", "modality",
-                 "depth_modality", "checkpoint_dir", "overfit_scene"):
+                 "depth_modality", "checkpoint_dir", "overfit_scene",
+                 "weights_init", "pretrained_weights_path"):
         p.add_argument(f"--{name}", type=str, default=getattr(d, name))
     for name in ("height", "width", "offset", "batch_size", "num_epochs",
                  "scheduler_step_size", "seed", "save_frequency",
@@ -73,7 +85,7 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="plane-sweep sampler: auto (the band-warp kernel, "
                         "8-row band) | xla (the exact gather, zeros padding)")
     p.add_argument("--decode_backend", type=str, default=d.decode_backend,
-                   help="host PNG decode; the port has cv2 only")
+                   help="host PNG decode: cv2, the only one the port has")
     p.add_argument("--random_flip", type=_bool, default=None,
                    help="random horizontal flip of training samples "
                         "(default: on for KITTI-family datasets, off for "
@@ -86,19 +98,16 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
     # only to refuse them
     for name in ("train_dpt", "res_pose", "use_attention"):
         p.add_argument(f"--{name}", action="store_true", default=False)
-    p.add_argument("--weights_init", type=str, default="scratch",
-                   help="scratch; pretrained is not ported yet")
 
 
 def _refuse_unported(a) -> None:
     for name in ("train_dpt", "res_pose", "use_attention"):
         if getattr(a, name):
             raise NotImplementedError(f"--{name}: not ported yet")
-    if a.weights_init != "scratch":
+    if a.decode_backend != "cv2":
         raise NotImplementedError(
-            f"--weights_init {a.weights_init}: not ported yet")
-    if getattr(a, "reference_weights", ""):
-        raise NotImplementedError("--reference_weights: not ported yet")
+            f"--decode_backend {a.decode_backend}: not ported yet (the port "
+            "decodes PNGs with cv2 only)")
 
 
 def _config_from_args(a) -> Config:
@@ -263,34 +272,286 @@ def train(argv):
     return trainer, results
 
 
-def evaluate(argv):
-    """The per-material table of the weights the flags name, printed;
-    returns (trainer, table)."""
-    p = argparse.ArgumentParser("polardepth_tpu_torch evaluate")
-    _add_common_flags(p)
+def _add_weights_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--weights", type=str, default="",
                    help="a checkpoint step directory (step_<N>) to load")
     p.add_argument("--reference_weights", type=str, default="",
-                   help="reference .pth weights: not ported yet")
-    p.add_argument("--post_process", action="store_true", default=False,
-                   help="flip-averaged eval (the Monodepth post-processing)")
+                   help="a reference weights_<epoch>/ directory of "
+                        "per-component .pth files (reference "
+                        "evaluation.py:290-311)")
+
+
+def _published_trainer(argv, name: str, add_flags=None):
+    """(flags, cfg, eval BatchIterator, Trainer with the weights the flags
+    name) of the published model, for the commands that predict."""
+    p = argparse.ArgumentParser(f"polardepth_tpu_torch {name}")
+    _add_common_flags(p)
+    _add_weights_flags(p)
+    if add_flags is not None:
+        add_flags(p)
     a = p.parse_args(argv)
     if a.train_student:
-        # the JAX package's evaluate builds the published Trainer whatever
+        # the JAX package's commands build the published Trainer whatever
         # the flags say; it has no student evaluation
-        raise NotImplementedError("evaluate --train_student: not ported yet")
+        raise NotImplementedError(f"{name} --train_student: not ported yet")
     cfg = _config_from_args(a)
+    eval_it, spe = _make_data(cfg, a, "test" if not a.synthetic else "train")
+    return a, cfg, eval_it, _trainer_with_weights(cfg, a, spe)
+
+
+def _trainer_with_weights(cfg: Config, a, steps_per_epoch: int):
+    """The published Trainer with the weights of --weights, then of
+    --reference_weights."""
     from polardepth_tpu_torch.train import checkpoint as ckpt
     from polardepth_tpu_torch.train.trainer import Trainer
 
-    eval_it, spe = _make_data(cfg, a, "test" if not a.synthetic else "train")
-    trainer = Trainer(cfg, steps_per_epoch=spe, device=a.device)
+    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=a.device)
     if a.weights:
         ckpt.restore(a.weights, trainer.state)
-    return trainer, trainer.evaluate(iter(eval_it))
+    if a.reference_weights:
+        from polardepth_tpu_torch.models.reference_import import (
+            load_reference_components)
+        load_reference_components(a.reference_weights, trainer.model)
+    return trainer
 
 
-COMMANDS = {"train": train, "evaluate": evaluate}
+def evaluate(argv):
+    """The per-material table of the weights the flags name, printed;
+    returns (trainer, table).  With --save_pred_disps, also one .npy of the
+    scaled disparities (1/depth) over the split (polardepth_tpu/cli.py:
+    633-679)."""
+    def flags(p):
+        p.add_argument("--post_process", action="store_true", default=False,
+                       help="flip-averaged eval (the Monodepth "
+                            "post-processing)")
+        p.add_argument("--save_pred_disps", action="store_true",
+                       default=False,
+                       help="also save the predicted scaled disparities as "
+                            "one .npy (reference options.py "
+                            "--save_pred_disps)")
+        p.add_argument("--eval_out_dir", type=str, default="",
+                       help="where --save_pred_disps writes (default: the "
+                            "working directory)")
+
+    a, cfg, eval_it, trainer = _published_trainer(argv, "evaluate", flags)
+    table = trainer.evaluate(iter(eval_it))
+    if a.save_pred_disps:
+        disps = [1.0 / trainer.predict(b) for b in eval_it]
+        out_dir = a.eval_out_dir or "."
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(
+            out_dir, f"disps_{cfg.dataset}_{a.split or 'test'}_split.npy")
+        np.save(path, np.concatenate(disps, axis=0))
+        print(f"saved predicted disparities to {path}")
+    return trainer, table
+
+
+def pointcloud(argv):
+    """PLY clouds and the four prediction PNGs of every frame of the first
+    eval batch (polardepth_tpu/cli.py:682-710); returns the depth."""
+    a, cfg, eval_it, trainer = _published_trainer(
+        argv, "pointcloud",
+        lambda p: p.add_argument("--out", type=str, default="pointclouds"))
+    from polardepth_tpu_torch.eval.pointcloud import (
+        depth_to_pointcloud, export_prediction_pngs, write_ply)
+
+    batch = next(iter(eval_it))
+    depth = trainer.predict(batch)
+    K = batch["K"][0]
+    for i in range(depth.shape[0]):
+        pts, cols = depth_to_pointcloud(
+            depth[i], batch["color"][i], fx=K[0, 0], fy=K[1, 1],
+            cx=K[0, 2], cy=K[1, 2])
+        write_ply(os.path.join(a.out, f"cloud_{i:03d}.ply"), pts, cols)
+        export_prediction_pngs(a.out, f"{i:03d}", batch["color"][i],
+                               batch["mask"][i], depth[i],
+                               batch["depth_gt"][i], cfg.max_depth)
+    print(f"wrote {depth.shape[0]} clouds to {a.out}")
+    return depth
+
+
+def export(argv):
+    """The preprocess and infer graph of the weights the flags name as one
+    torch.export program, <out> and <out>.json (eval/export.py;
+    polardepth_tpu/cli.py:713-758); returns the program."""
+    p = argparse.ArgumentParser("polardepth_tpu_torch export")
+    _add_common_flags(p)
+    _add_weights_flags(p)
+    p.add_argument("--out", type=str, default="model.pt2")
+    p.add_argument("--batch", type=int, default=0,
+                   help="fixed batch size; 0 = symbolic (any batch)")
+    a = p.parse_args(argv)
+    cfg = _config_from_args(a)
+    from polardepth_tpu_torch.eval.export import make_export, save_artifact
+
+    trainer = _trainer_with_weights(cfg, a, 1)
+    program = make_export(cfg, trainer.model.state_dict(),
+                          batch=a.batch or None, device=a.device)
+    save_artifact(program, a.out, cfg)
+    with open(a.out + ".json") as f:
+        meta = json.load(f)
+    print(f"wrote {a.out} (+.json): inputs {meta['inputs']} platforms "
+          f"{meta['platforms']}")
+    return program
+
+
+def _frame_names(pred_dir: str) -> list:
+    return sorted(f[: -len("_depth_pred.png")] for f in os.listdir(pred_dir)
+                  if f.endswith("_depth_pred.png"))
+
+
+def _read_png(pred_dir: str, name: str, tag: str):
+    import cv2
+    path = os.path.join(pred_dir, f"{name}_{tag}.png")
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
+def analyze(argv):
+    """The 2-D visual analysis of saved predictions (the reference's
+    analysis_2d/visual_analysis.ipynb; polardepth_tpu/cli.py:761-833):
+    per-frame |error| heatmaps and masked-error renderings and a
+    per-material RMS markdown table, from the PNGs ``pointcloud`` writes
+    (<name>_{rgb,mask,depth_pred,depth_gt}.png, depths uint16 mm).
+    Returns the report's path."""
+    import cv2
+    p = argparse.ArgumentParser("polardepth_tpu_torch analyze")
+    p.add_argument("--pred_dir", type=str, required=True,
+                   help="dir of <name>_{rgb,mask,depth_pred,depth_gt}.png")
+    p.add_argument("--out", type=str, default="",
+                   help="output dir (default: <pred_dir>/analysis)")
+    p.add_argument("--min_depth", type=float, default=0.1)
+    p.add_argument("--max_depth", type=float, default=2.0)
+    a = p.parse_args(argv)
+    from polardepth_tpu_torch.eval.analysis import (
+        error_maps, per_material_rms, render_error_heatmap)
+    from polardepth_tpu_torch.utils.colormap import colormap_plasma
+
+    out_dir = a.out or os.path.join(a.pred_dir, "analysis")
+    names = _frame_names(a.pred_dir)
+    if not names:
+        raise FileNotFoundError(f"no *_depth_pred.png in {a.pred_dir}")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    agg: dict = {}
+    for name in names:
+        pred = _read_png(a.pred_dir, name, "depth_pred").astype(
+            np.float32) / 1000.0
+        gt = _read_png(a.pred_dir, name, "depth_gt").astype(
+            np.float32) / 1000.0
+        mask = _read_png(a.pred_dir, name, "mask")
+        heat = render_error_heatmap(pred, gt, a.min_depth, a.max_depth)
+        cv2.imwrite(os.path.join(out_dir, f"{name}_error.png"),
+                    (heat[..., ::-1] * 255).astype(np.uint8))
+        maps = error_maps(pred, gt, a.min_depth, a.max_depth)
+        obj = maps["abs"] * ((mask >= 20) & (mask <= 160))
+        cv2.imwrite(os.path.join(out_dir, f"{name}_error_objects.png"),
+                    (colormap_plasma(obj)[..., ::-1] * 255).astype(np.uint8))
+        rms = per_material_rms(pred, gt, mask, a.min_depth, a.max_depth)
+        rows.append((name, rms))
+        for k, v in rms.items():
+            if np.isfinite(v):
+                agg.setdefault(k, []).append(v)
+
+    mats = [k for k in rows[0][1] if k in agg]
+    lines = ["# 2-D visual analysis", "",
+             f"{len(names)} frames from `{a.pred_dir}`; RMS depth error (m) "
+             f"per material slice, valid range "
+             f"[{a.min_depth}, {a.max_depth}] m.", "",
+             "| frame | " + " | ".join(mats) + " |",
+             "|---|" + "---|" * len(mats)]
+    for name, rms in rows:
+        lines.append("| " + name + " | " + " | ".join(
+            f"{rms[m]:.4f}" if np.isfinite(rms.get(m, float("nan")))
+            else "-" for m in mats) + " |")
+    lines.append("| **mean** | " + " | ".join(
+        f"{np.mean(agg[m]):.4f}" for m in mats) + " |")
+    lines += ["", "Per-frame artifacts: `<name>_error.png` (|error| "
+              "heatmap), `<name>_error_objects.png` (objects-masked)."]
+    report = os.path.join(out_dir, "report.md")
+    with open(report, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"wrote {report} (+{2 * len(names)} heatmaps)")
+    return report
+
+
+def _placeholder_logo(size: int = 64) -> np.ndarray:
+    """A filled ring with alpha, RGBA."""
+    yy, xx = np.mgrid[:size, :size]
+    r2 = (yy - size / 2) ** 2 + (xx - size / 2) ** 2
+    ring = (r2 < (size * 0.45) ** 2) & (r2 > (size * 0.2) ** 2)
+    logo = np.zeros((size, size, 4), np.uint8)
+    logo[ring] = (40, 90, 220, 255)
+    return logo
+
+
+def ar(argv):
+    """The depth-aware AR occlusion demo (reference ar_visualization/
+    main.py:223-237; polardepth_tpu/cli.py:836-918): from the PNGs
+    ``pointcloud`` writes, a logo composited at the background depth and
+    swept across the frame, occluded by scene pixels whose predicted depth
+    is closer, as an animated GIF (the sweep forward, then reversed).
+    Returns the GIF's path."""
+    import cv2
+    p = argparse.ArgumentParser("polardepth_tpu_torch ar")
+    p.add_argument("--pred_dir", type=str, required=True,
+                   help="dir of <name>_{rgb,mask,depth_pred,depth_gt}.png "
+                        "(from pointcloud)")
+    p.add_argument("--name", type=str, default="",
+                   help="frame name prefix (default: the first found)")
+    p.add_argument("--logo", type=str, default="",
+                   help="RGBA logo PNG (default: a generated placeholder)")
+    p.add_argument("--out", type=str, default="",
+                   help="output GIF (default: <pred_dir>/ar/depth_check.gif)")
+    # the reference's sweep parameters (main.py:228-234)
+    p.add_argument("--y_start", type=int, default=225)
+    p.add_argument("--x_start", type=int, default=260)
+    p.add_argument("--num_frames", type=int, default=30)
+    p.add_argument("--pixel_movement_y", type=int, default=0)
+    p.add_argument("--pixel_movement_x", type=int, default=3)
+    p.add_argument("--logo_pixel_height", type=int, default=15)
+    a = p.parse_args(argv)
+    from polardepth_tpu_torch.apps.ar import render_ar_gif
+
+    name = a.name
+    if not name:
+        names = _frame_names(a.pred_dir)
+        if not names:
+            raise FileNotFoundError(f"no *_depth_pred.png in {a.pred_dir}")
+        name = names[0]
+    rgb = _read_png(a.pred_dir, name, "rgb")[..., ::-1]
+    mask = _read_png(a.pred_dir, name, "mask")
+    pred = _read_png(a.pred_dir, name, "depth_pred").astype(
+        np.float32) / 1000.0
+    gt = _read_png(a.pred_dir, name, "depth_gt").astype(np.float32) / 1000.0
+    h, w = pred.shape[:2]
+    if a.logo:
+        logo = cv2.imread(a.logo, cv2.IMREAD_UNCHANGED)
+        if logo is None:
+            raise FileNotFoundError(a.logo)
+        if logo.shape[-1] == 4:
+            logo = np.concatenate([logo[..., 2::-1], logo[..., 3:]], axis=-1)
+        else:
+            logo = logo[..., ::-1]
+    else:
+        logo = _placeholder_logo()
+    ys = [a.y_start + i * a.pixel_movement_y for i in range(a.num_frames)]
+    xs = [a.x_start + i * a.pixel_movement_x for i in range(a.num_frames)]
+    positions = [(int(np.clip(y, 0, h - 1)), int(np.clip(x, 0, w - 1)))
+                 for y, x in zip(ys, xs)]
+    positions = positions + positions[::-1]  # the reference's forward+reverse
+    out = a.out or os.path.join(a.pred_dir, "ar", "depth_check.gif")
+    render_ar_gif(out, rgb, pred, gt, (mask > 0).astype(np.uint8), logo,
+                  positions, duration_ms=300,
+                  logo_pixel_height=a.logo_pixel_height)
+    print(f"wrote {out} ({len(positions)} frames)")
+    return out
+
+
+COMMANDS = {"train": train, "evaluate": evaluate, "pointcloud": pointcloud,
+            "export": export, "analyze": analyze, "ar": ar}
 
 
 def main(argv=None) -> int:

@@ -9,8 +9,8 @@ imports nothing of the JAX package.  Field
 names and defaults are those of the reference's flags
 (manydepth/options.py); the defaults reproduce the published run,
 train_supervised_GT.sh.  Fields of paths this package does not port yet
-(residual poses, DPT, attention, initialisation switches, TPU layout plans)
-are left out and come with their slice.
+(residual poses, DPT, attention, TPU layout plans) are left out and come
+with their slice.
 """
 
 from __future__ import annotations
@@ -61,6 +61,11 @@ class Config:
     # channels, instead of the RGB frame (train/losses.twelve_channel_input)
     enable_12channels: bool = False
     dropout_rate: float = 0.1
+    # "pretrained" grafts the torchvision ResNet18 .npz at
+    # pretrained_weights_path into every ResNet18 encoder
+    # (train/pretrained.py)
+    weights_init: str = "scratch"
+    pretrained_weights_path: str = ""
     refraction_index: float = 1.5    # n of the Fresnel normal priors
     # the XOLP and normals encoders run as one groups=2 stack at 128
     # channels; needs augment_xolp and augment_normals (ignored otherwise)
@@ -152,6 +157,9 @@ class Config:
         return cls(**d)
 
     def validate(self) -> None:
+        if self.weights_init not in ("scratch", "pretrained"):
+            raise ValueError(f"weights_init must be 'scratch' or 'pretrained'"
+                             f" (got {self.weights_init!r})")
         if self.height % 32 or self.width % 32:
             raise ValueError("height and width must be multiples of 32 "
                              f"(got {self.height}x{self.width})")

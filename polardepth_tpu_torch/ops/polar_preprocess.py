@@ -1,20 +1,26 @@
 """Fused polar preprocess: 4 captures -> XOLP (..., 2) + Fresnel priors (..., 9).
 
 The counterpart of polardepth_tpu/ops/pallas/polar_preprocess.py
-(fused_polar_preprocess).  On a CUDA tensor the wrapper launches the
-hand-written kernel of csrc/polar_preprocess.cu; on a CPU tensor it runs the
-plain torch version below, which computes the same function with the same
-table and the same order of operations.
+(fused_polar_preprocess).  The function is the registered operator
+``torch.ops.polardepth_tpu.polar_preprocess``: on a CUDA tensor it launches
+the hand-written kernel of csrc/polar_preprocess.cu, on a CPU tensor it runs
+the plain torch version below, which computes the same function with the same
+table and the same order of operations.  Its fake implementation gives the
+output shapes alone, so that ``torch.export`` records the operator as one node
+of the exported graph (eval/export.py), and a program loaded from a file
+finds it once this module is imported.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from polardepth_tpu_torch.ops import build
 from polardepth_tpu_torch.ops.fresnel import normal_priors_from_xolp, tables_on
 from polardepth_tpu_torch.ops.xolp import PINV_F32, xolp_from_pol
 
+OP_NAME = "polardepth_tpu::polar_preprocess"
 _NAME = "polar_preprocess"
 _MAX_BINS = 128  # per curve section (csrc/polar_preprocess.cu)
 
@@ -26,22 +32,28 @@ def polar_preprocess_plain(pol: torch.Tensor, n: float = 1.5,
     return xolp, normal_priors_from_xolp(xolp, n, prune_tol)
 
 
-def fused_polar_preprocess(pol: torch.Tensor, n: float = 1.5,
-                           prune_tol: float | None = 1e-5):
-    """pol (..., 4) float32 0..255-scale grays at 0/45/90/135 degrees ->
-    (xolp (..., 2), priors (..., 9)), float32, channels last.
+@torch.library.custom_op(OP_NAME, mutates_args=())
+def polar_preprocess(pol: Tensor, n: float,
+                     prune_tol: float | None) -> tuple[Tensor, Tensor]:
+    """The operator on a device that has no implementation."""
+    raise ValueError(f"no kernel for device {pol.device}")
 
-    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
-    on the current stream, or raises.
-    """
-    if pol.dtype != torch.float32:
-        raise TypeError(f"pol must be float32, got {pol.dtype}")
-    if pol.dim() < 1 or pol.shape[-1] != 4:
-        raise ValueError(f"pol must be (..., 4), got {tuple(pol.shape)}")
-    if pol.device.type == "cpu":
-        return polar_preprocess_plain(pol, n, prune_tol)
-    if pol.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pol.device}")
+
+@polar_preprocess.register_fake
+def _(pol, n, prune_tol):
+    shape = pol.shape[:-1]
+    return (pol.new_empty(*shape, 2, dtype=torch.float32),
+            pol.new_empty(*shape, 9, dtype=torch.float32))
+
+
+@polar_preprocess.register_kernel("cpu")
+def _(pol, n, prune_tol):
+    return polar_preprocess_plain(pol, n, prune_tol)
+
+
+@polar_preprocess.register_kernel("cuda")
+def _(pol, n, prune_tol):
+    """Launch the kernel on the current stream, or raise."""
     if not pol.is_contiguous():
         raise ValueError("pol must be contiguous")
     if pol.data_ptr() % 16:
@@ -67,3 +79,26 @@ def fused_polar_preprocess(pol: torch.Tensor, n: float = 1.5,
     build.check(_NAME, code)
     build.launch_counts[_NAME] += 1
     return xolp, priors
+
+
+def fused_polar_preprocess(pol: torch.Tensor, n: float = 1.5,
+                           prune_tol: float | None = 1e-5):
+    """pol (..., 4) float32 0..255-scale grays at 0/45/90/135 degrees ->
+    (xolp (..., 2), priors (..., 9)), float32, channels last, through the
+    operator.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches the kernel
+    on the current stream, or raises.  The operator has no gradient: a pol
+    that needs one raises.
+    """
+    if pol.dtype != torch.float32:
+        raise TypeError(f"pol must be float32, got {pol.dtype}")
+    if pol.dim() < 1 or pol.shape[-1] != 4:
+        raise ValueError(f"pol must be (..., 4), got {tuple(pol.shape)}")
+    if pol.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {pol.device}")
+    if pol.requires_grad and torch.is_grad_enabled():
+        raise ValueError("the polar preprocess has no gradient: pol must "
+                         "not require one")
+    return polar_preprocess(pol, float(n),
+                            None if prune_tol is None else float(prune_tol))

@@ -28,6 +28,7 @@ from polardepth_tpu_torch.eval.evaluation import (
     eval_step_metrics, format_table)
 from polardepth_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from polardepth_tpu_torch.train import checkpoint as ckpt
+from polardepth_tpu_torch.train.pretrained import maybe_apply_pretrained
 from polardepth_tpu_torch.train.selfsup import to_device
 from polardepth_tpu_torch.train.state import TrainState, create_train_state
 from polardepth_tpu_torch.train.trainer import step_seed
@@ -199,7 +200,8 @@ def make_alt_trainer(cfg: Config, steps_per_epoch: int, device="cuda",
     teacher-student model with ``train_student`` (the frozen-teacher step
     from freeze_teacher_epoch on, when that is >= 0), else the
     self-supervised model.  torch's initialisation is seeded by cfg.seed,
-    and the model is built on device."""
+    the model is built on device, and with cfg.weights_init "pretrained"
+    its ResNet18 encoders take the ImageNet weights."""
     cfg.validate()
     device = torch.device(device)
     with torch.random.fork_rng(devices=[]):
@@ -211,6 +213,7 @@ def make_alt_trainer(cfg: Config, steps_per_epoch: int, device="cuda",
             from polardepth_tpu_torch.train import selfsup
             model = selfsup.SelfSupModel.from_config(cfg)
     model.to(device)
+    maybe_apply_pretrained(model, cfg, log_fn)
     state = create_train_state(model, cfg, steps_per_epoch)
     if not cfg.train_student:
         return AltTrainer(cfg, state,

@@ -32,6 +32,7 @@ from polardepth_tpu_torch.models.network import PolarDepthNet
 from polardepth_tpu_torch.ops.depth import disp_to_depth
 from polardepth_tpu_torch.train.losses import (
     preprocess_batch, supervised_losses, twelve_channel_input)
+from polardepth_tpu_torch.train.pretrained import maybe_apply_pretrained
 from polardepth_tpu_torch.train.selfsup import model_device, to_device
 from polardepth_tpu_torch.train.state import (
     TrainState, apply_gradients, create_train_state)
@@ -56,6 +57,12 @@ def build_model(cfg: Config) -> PolarDepthNet:
 
 def _needs_pol(cfg: Config) -> bool:
     return cfg.augment_xolp or cfg.augment_normals
+
+
+def takes_pol(cfg: Config) -> bool:
+    """Whether the served model reads the captures: for the priors, or as
+    the 12-channel encoder input."""
+    return _needs_pol(cfg) or cfg.enable_12channels
 
 
 def _encoder_input(cfg: Config, pb: dict) -> torch.Tensor:
@@ -205,7 +212,8 @@ class Trainer:
 
     Trainer(cfg, steps_per_epoch, device="cuda", log_fn=print) builds the
     model from cfg with torch's initialisation seeded by cfg.seed, on
-    device.  ``counts`` tallies the train steps, eval batches and predict
+    device, and with cfg.weights_init "pretrained" grafts the ImageNet
+    ResNet18 weights into its RGB encoder.  ``counts`` tallies the train steps, eval batches and predict
     batches that ran (each runs the polarization preprocess once).
     """
 
@@ -220,6 +228,7 @@ class Trainer:
             torch.manual_seed(cfg.seed)
             model = build_model(cfg)
         self.model = model.to(self.device)
+        maybe_apply_pretrained(self.model, cfg, log_fn)
         self.state = create_train_state(self.model, cfg, steps_per_epoch)
         self.generator = torch.Generator(device=self.device)
         self._train_step = make_train_step(self.model, cfg)
@@ -436,8 +445,7 @@ class Predictor:
         self.model = build_model(cfg)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device)
-        self._keys = ("color", "pol") if _needs_pol(cfg) or \
-            cfg.enable_12channels else ("color",)
+        self._keys = ("color", "pol") if takes_pol(cfg) else ("color",)
         self._step = make_infer_step(self.model, cfg)
 
     def predict(self, batch: dict) -> np.ndarray:

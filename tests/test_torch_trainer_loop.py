@@ -221,7 +221,7 @@ def test_cli_train_then_evaluate(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--weights_init", "pretrained"], ["--train_dpt"], ["--res_pose"],
+    ["--decode_backend", "native"], ["--train_dpt"], ["--res_pose"],
     ["--use_attention"], ["--depth_supervision_only", "false", "--res_pose"]])
 def test_cli_refuses_unported_paths(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -231,7 +231,9 @@ def test_cli_refuses_unported_paths(flags, tmp_path):
 
 
 def test_cli_refuses_reference_weights_and_other_datasets(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """A reference weights directory without any component file raises
+    (the import itself: tests/test_torch_reference_import.py)."""
+    with pytest.raises(FileNotFoundError, match="no reference component"):
         cli.main(["evaluate", "--synthetic", "2", "--device", "cpu",
                   "--reference_weights", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="kitti.*not ported yet"):
