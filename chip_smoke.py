@@ -3,10 +3,12 @@
 
 Serves the published tri-encoder (uint8 captures -> metric depth, 320x480,
 batch 12, seeded random weights) through ``Predictor.predict``, trains the
-self-supervised + depth-supervised model (``make_selfsup_train_step``), the
-published supervised model (``make_train_step``) and the ManyDepth
-teacher-student model (``make_student_train_step``) for a few steps at the
-same geometry, takes the published model in and out of the port (a
+self-supervised + depth-supervised model (``make_selfsup_train_step``, also
+with the residual-pose pass), the published supervised model
+(``make_train_step``) and the ManyDepth teacher-student model
+(``make_student_train_step``) for a few steps at the same geometry, serves,
+trains and exports the attention variant, takes the published model in and
+out of the port (a
 ``torch.export`` program, reference .pth files, ImageNet-shaped encoder
 weights, point clouds, the analysis report and the AR GIF), and holds every
 CUDA kernel of those paths against its plain torch version.  One timed line
@@ -22,11 +24,13 @@ per phase:
      depth finite and in range, one kernel launch per request, and the depth
      equal (within DEPTH_TOL) to the same model run with the plain preprocess
      on the card and, for the first image, on the CPU.
-  5. warp: the band-warp kernels K2 (forward) and K3 (grid gradient)
-     against their plain versions at the training shape (12, 320, 480, 3)
-     on a parallax grid (project_3d of a random depth and pose) and a
-     sheared grid whose rows leave the 32-row band; the share of pixels
-     the band clamps; kernel, plain and F.grid_sample times; the bounds.
+  5. warp: the band-warp kernels K2 (forward), K3 (grid gradient) and K4
+     (image gradient) against their plain versions at the training shape
+     (12, 320, 480, 3) on a parallax grid (project_3d of a random depth and
+     pose) and a sheared grid whose rows leave the 32-row band; the share
+     of pixels the band clamps; kernel, plain and library times (the
+     forward, grid-only and input-only backward of grid_sample); the
+     bounds.
      Then K2 at the plane sweep's shape (the teacher's cost volume: 64
      feature channels at 80x120, 16 depth bins stacked on rows, k = 8)
      against its plain version, beside F.grid_sample and its bound.
@@ -72,7 +76,18 @@ per phase:
      seeded torchvision-shaped .npz, its grafted leaves checked; and
      ``pointcloud``, ``analyze`` and ``ar`` on the card's predictions,
      their files checked.
- 11. result: the kernels' JSON line, then the final JSON line.
+ 11. attention: the arch1++_attention variant (PUBLISHED with
+     use_attention) served as in phase 4, then in turns with the same
+     model without the attention on one batch, trained as in phase 7
+     (with its peak memory), exported and loaded as in phase 10, and the
+     command line's ``train --use_attention --synthetic 24 --num_epochs
+     1``.
+ 12. res_pose: the self-supervised step of phase 6 with the residual-pose
+     pass; K1 once, K2 and K3 ten times and K4 (the image gradient) twice
+     per step; the kernel step against the plain-warp step; and the
+     command line's ``train --depth_supervision_only false --res_pose
+     --synthetic 12 --num_epochs 1``.
+ 13. result: the kernels' JSON line, then the final JSON line.
 
 Kernel times (phases 3 and 5, and the kernels line) are taken behind a spin
 on the card (``device_ms``), so that a wrapper's host time per call does not
@@ -162,8 +177,16 @@ WARP_GRAD_RTOL = 1e-5
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_RTOL = 1e-4
 NOISE_MULT = 4.0
-# the self-supervised step warps 4 scales x 2 source frames
+# the self-supervised step warps 4 scales x 2 source frames; with res_pose
+# it warps each source frame's warp once more, whose image carries a
+# gradient (K4)
 WARPS_PER_STEP = 8
+RES_WARPS_PER_STEP = 2
+# K4 vs its plain version: the products are the plain version's to the bit,
+# the sums of the contributions to one pixel run in another order (atomics).
+# Two float32 sums of the same n terms differ by at most 2 (n - 1) u times
+# the sum of their magnitudes, u = 2^-24: the limit, per pixel.
+F32_UNIT_ROUNDOFF = 2.0 ** -24
 # The train loop's run: PUBLISHED on 48 synthetic scenes for 2 epochs.
 LOOP_SCENES = 48
 LOOP_EPOCHS = 2
@@ -181,6 +204,15 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def launches_of(**counts) -> dict:
+    """Launch counts of every kernel of ops/build.py: those given, 0 for the
+    rest."""
+    unknown = set(counts) - set(build.launch_counts)
+    if unknown:
+        raise KeyError(f"no kernel named {sorted(unknown)}")
+    return {k: counts.get(k, 0) for k in build.launch_counts}
 
 
 @contextlib.contextmanager
@@ -247,10 +279,11 @@ def seeded_state_dict(cfg: Config, seed: int, model=None) -> dict:
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = fill(v)
-            elif k == "kernel":     # torch's default conv init range
-                bound = 1.0 / np.sqrt(np.prod(v.shape[:3]))
+            elif k == "kernel":     # torch's default init range: 1/sqrt(fan_in)
+                fan_in = np.prod(v.shape[:3] if v.ndim == 4 else v.shape[:1])
+                bound = 1.0 / np.sqrt(fan_in)
                 out[k] = rng.uniform(-bound, bound, v.shape)
-            elif k in ("scale", "var"):
+            elif k in ("scale", "var", "gamma"):
                 out[k] = rng.uniform(0.5, 1.5, v.shape)
             else:                   # bias, mean
                 out[k] = rng.normal(0.0, 0.1, v.shape)
@@ -486,9 +519,50 @@ def warp_bound_ms(b: int, h: int, w: int, c: int, n_out: int,
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def img_grad_bound_ms(b: int, h: int, w: int, c: int,
+                      n_out: int) -> tuple[float, str]:
+    """K4: reads ix, iy and the cotangent once and writes the image
+    gradient once (the launcher's zeroing pass is the implementation's, not
+    the function's); 4 weights and 4C multiply-adds per pixel."""
+    t_bytes = (n_out * (8 + 4 * c) + b * h * w * c * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = n_out * (8 + 8 * c) / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def img_grad_limit(img, ix, iy, g) -> tuple[torch.Tensor, int]:
+    """(K4's limit against its plain version per pixel: 2 (n - 1) u times
+    the sum of the magnitudes of its n contributions, the most two float32
+    sums of the same terms in two orders can differ by; the largest n)."""
+    b, h, w, _ = img.shape
+    magnitude = band_warp.band_warp_img_grad_plain(img, ix, iy, g.abs())
+    _, _, *index = band_warp.tap_index(h, w, ix, iy)
+    base = (torch.arange(b, device=ix.device) * h * w).view(b, 1, 1)
+    terms = torch.bincount(torch.cat([(i + base).reshape(-1) for i in index]),
+                           minlength=b * h * w).reshape(b, h, w, 1)
+    limit = 2 * (terms - 1).clamp(min=0) * F32_UNIT_ROUNDOFF * magnitude
+    return limit, int(terms.max())
+
+
+def img_grad_errors(img, ix, iy, g) -> dict:
+    """K4 against its plain version: the largest difference, and the
+    largest ratio of a pixel's difference to its limit
+    (``img_grad_limit``)."""
+    k_grad = band_warp.band_warp_img_grad(img, ix, iy, g)
+    p_grad = band_warp.band_warp_img_grad_plain(img, ix, iy, g)
+    limit, terms = img_grad_limit(img, ix, iy, g)
+    diff = (k_grad - p_grad).abs()
+    over = torch.where(diff == 0, 0.0, diff / limit)
+    return {"img_grad": float(diff.max()),
+            "img_grad_over_limit": float(over.max()),
+            "img_grad_max": float(p_grad.abs().max()),
+            "img_grad_terms": terms,
+            "img_grad_finite": bool(torch.isfinite(k_grad).all())}
+
+
 def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
                name_power: str, iters: int = 100) -> dict:
-    """K2 and K3 against their plain versions on two grids; times."""
+    """K2, K3 and K4 against their plain versions on two grids; times."""
     rng = np.random.default_rng(seed + 5)
     h, w, c = cfg.height, cfg.width, 3
     img = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, c)).astype(
@@ -527,6 +601,16 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
         require(e["dix"] <= WARP_GRAD_RTOL * e["dix_max"]
                 and e["diy"] <= WARP_GRAD_RTOL * e["diy_max"],
                 f"K3 error on the {name} grid")
+        e.update(img_grad_errors(img, ix, iy, g))
+        print(f"  {name:8s} K4 max|grad| err {e['img_grad']:.3e} of "
+              f"{e['img_grad_max']:.3e}, at most {e['img_grad_over_limit']:.4f}"
+              f" of its pixel's limit (2 (n-1) 2^-24 sum|terms|, up to n = "
+              f"{e['img_grad_terms']} terms)  finite "
+              f"{e['img_grad_finite']}")
+        require(e["img_grad_finite"],
+                f"non-finite K4 output on the {name} grid")
+        require(e["img_grad_over_limit"] <= 1.0,
+                f"K4 error on the {name} grid")
         t = {}
         t["fwd_b2b"], t["fwd_host"] = time_ms(
             lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
@@ -540,6 +624,12 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
             lambda: band_warp.band_warp_fwd_plain(img, ix, iy), 10)
         t["bwd_plain"] = device_ms(
             lambda: band_warp.band_warp_bwd_plain(img, ix, iy, g), 10)
+        t["img_b2b"], t["img_host"] = time_ms(
+            lambda: band_warp.band_warp_img_grad(img, ix, iy, g), iters)
+        t["img"] = device_ms(
+            lambda: band_warp.band_warp_img_grad(img, ix, iy, g), iters)
+        t["img_plain"] = device_ms(
+            lambda: band_warp.band_warp_img_grad_plain(img, ix, iy, g), 10)
         # the library yardstick: torch's bilinear border grid_sample on the
         # same image (a channels-last view) and grid; its grid-only backward
         nchw = img.permute(0, 3, 1, 2)
@@ -552,16 +642,23 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
         g_nchw = g.permute(0, 3, 1, 2)
         t["bwd_library"] = device_ms(lambda: torch.autograd.grad(
             lib_out, grid_req, g_nchw, retain_graph=True), iters)
+        # grid_sample's input-only backward: bilinear (0), border (1)
+        t["img_library"] = device_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, nchw, grid, 0, 1, True, [True, False]), iters)
         n_out = ix.numel()
         bounds = {"fwd": warp_bound_ms(batch, h, w, c, n_out, False),
-                  "bwd": warp_bound_ms(batch, h, w, c, n_out, True)}
-        for k in ("fwd", "bwd"):
+                  "bwd": warp_bound_ms(batch, h, w, c, n_out, True),
+                  "img": img_grad_bound_ms(batch, h, w, c, n_out)}
+        for k, kernel, library in (
+                ("fwd", "K2", "F.grid_sample forward"),
+                ("bwd", "K3", "F.grid_sample grid backward"),
+                ("img", "K4", "grid_sampler_2d_backward input-only")):
             bound, by = bounds[k]
-            print(f"  {name:8s} {'K2' if k == 'fwd' else 'K3'} kernel_ms "
+            print(f"  {name:8s} {kernel} kernel_ms "
                   f"{t[k]:.4f} behind a spin  (wrapper host ms "
                   f"{t[k + '_host']:.4f}; back to back {t[k + '_b2b']:.4f})"
-                  f"  plain_ms {t[k + '_plain']:.4f}  "
-                  f"F.grid_sample {'forward' if k == 'fwd' else 'grid backward'}"
+                  f"  plain_ms {t[k + '_plain']:.4f}  {library}"
                   f" ms {t[k + '_library']:.4f}  bound_ms {bound:.4f} ({by})"
                   f"  share of bound {bound / t[k]:.3f}  [{name_power}]")
         out[name] = {"errors": e, "times": t, "bounds": bounds}
@@ -690,6 +787,16 @@ def run_steps(step, st, batch: dict, generator, steps: int, device):
     return losses, times, window, dict(build.launch_counts)
 
 
+def selfsup_launches(cfg: Config) -> dict:
+    """Launches per self-supervised step on the card: K1 once; K2 and K3 for
+    every warp; with res_pose the re-warps' K2, K3 and K4."""
+    res = RES_WARPS_PER_STEP if cfg.res_pose else 0
+    return launches_of(polar_preprocess=1,
+                       band_warp_fwd=WARPS_PER_STEP + res,
+                       band_warp_bwd=WARPS_PER_STEP + res,
+                       band_warp_img_grad=res)
+
+
 def _grads(model) -> dict:
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
@@ -714,14 +821,17 @@ def plain_warp_step(cfg: Config, weights: dict, batch: dict, device,
         st = state.create_train_state(model, cfg)
         step = selfsup.make_selfsup_train_step(model, cfg)
         gen = torch.Generator(device=device).manual_seed(seed)
-        saved = band_warp.band_warp_fwd, band_warp.band_warp_bwd
+        saved = (band_warp.band_warp_fwd, band_warp.band_warp_bwd,
+                 band_warp.band_warp_img_grad)
         if plain:
             band_warp.band_warp_fwd = band_warp.band_warp_fwd_plain
             band_warp.band_warp_bwd = band_warp.band_warp_bwd_plain
+            band_warp.band_warp_img_grad = band_warp.band_warp_img_grad_plain
         try:
             loss = float(step(st, batch, gen)["loss"])
         finally:
-            band_warp.band_warp_fwd, band_warp.band_warp_bwd = saved
+            (band_warp.band_warp_fwd, band_warp.band_warp_bwd,
+             band_warp.band_warp_img_grad) = saved
         results.append((loss, _grads(model)))
     (loss_k, g_k), (loss_p, g_p), (_, g_r) = results
     ratios = {k: float((g_k[k] - g_p[k]).abs().max()) / (
@@ -755,10 +865,8 @@ def train_selfsup(device, cfg: Config, batch_size: int, steps: int,
     losses, times, window, launches = run_steps(step, st, batch, gen, steps,
                                                 device)
     n = steps + 1
-    want = ({"polar_preprocess": n, "band_warp_fwd": WARPS_PER_STEP * n,
-             "band_warp_fwd_lanes": 0, "band_warp_bwd": WARPS_PER_STEP * n}
-            if device.type == "cuda"
-            else {k: 0 for k in launches})
+    want = ({k: v * n for k, v in selfsup_launches(cfg).items()}
+            if device.type == "cuda" else launches_of())
     require(launches == want, f"self-supervised launches {launches}, "
             f"expected {want}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
@@ -793,18 +901,21 @@ def train_supervised(device, cfg: Config, batch_size: int, steps: int,
     full = train_batch(rng, batch_size, cfg, device)
     batch = {k: full[k] for k in ("color", "pol", "depth", "K")}
     gen = torch.Generator(device=device).manual_seed(seed)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     losses, times, window, launches = run_steps(step, st, batch, gen, steps,
                                                 device)
     n = steps + 1
-    want = ({"polar_preprocess": n, "band_warp_fwd": 0,
-             "band_warp_fwd_lanes": 0, "band_warp_bwd": 0}
-            if device.type == "cuda" else {k: 0 for k in launches})
+    want = launches_of(polar_preprocess=n if cuda else 0)
     require(launches == want, f"supervised launches {launches}, expected "
             f"{want}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     return {"losses": losses, "ms_per_step": 1e3 * float(np.median(times)),
             "images_per_s": batch_size * steps / window,
-            "launches": launches}
+            "launches": launches,
+            "max_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if cuda else None)}
 
 
 # --- phase 8: the training loop through the command line --------------------
@@ -1024,8 +1135,7 @@ def train_loop(device, flags=(), scenes: int = LOOP_SCENES,
         # K1 runs once per train step, eval batch and logged image's
         # prediction; on the CPU never
         want = sum(counts.values()) if device.type == "cuda" else 0
-        require(launches == {"polar_preprocess": want, "band_warp_fwd": 0,
-                             "band_warp_fwd_lanes": 0, "band_warp_bwd": 0},
+        require(launches == launches_of(polar_preprocess=want),
                 f"train loop launches {launches}, expected {want} of K1")
 
         _, table = cli.evaluate([*common, "--weights", step_dir])
@@ -1106,16 +1216,14 @@ def train_loop(device, flags=(), scenes: int = LOOP_SCENES,
 # (the lanes kernel); K3 the backward of the warps that carry a gradient:
 # both models' in the unfrozen step, the student's alone in the frozen one.
 SWEEP_CHUNKS = PUBLISHED.num_depth_bins // 16
-STUDENT_LAUNCHES = {"polar_preprocess": 1,
-                    "band_warp_fwd": 2 * WARPS_PER_STEP + SWEEP_CHUNKS,
-                    "band_warp_fwd_lanes": SWEEP_CHUNKS,
-                    "band_warp_bwd": 2 * WARPS_PER_STEP}
+STUDENT_LAUNCHES = launches_of(
+    polar_preprocess=1, band_warp_fwd=2 * WARPS_PER_STEP + SWEEP_CHUNKS,
+    band_warp_fwd_lanes=SWEEP_CHUNKS, band_warp_bwd=2 * WARPS_PER_STEP)
 FROZEN_LAUNCHES = dict(STUDENT_LAUNCHES, band_warp_bwd=WARPS_PER_STEP)
 # the student's infer step (an eval batch): K1 and the sweep
-STUDENT_INFER_LAUNCHES = {"polar_preprocess": 1,
-                          "band_warp_fwd": SWEEP_CHUNKS,
-                          "band_warp_fwd_lanes": SWEEP_CHUNKS,
-                          "band_warp_bwd": 0}
+STUDENT_INFER_LAUNCHES = launches_of(polar_preprocess=1,
+                                     band_warp_fwd=SWEEP_CHUNKS,
+                                     band_warp_fwd_lanes=SWEEP_CHUNKS)
 # The JAX package's limit between its banded plane sweep and the exact one
 # on the pixels that survive the edge mask (tests/test_band_warp.py:143-182,
 # small poses): measured here at full width, reported, not enforced, since
@@ -1308,7 +1416,7 @@ def train_student(device, cfg: Config, batch_size: int, steps: int,
     launches = dict(build.launch_counts)
     n = steps + 1
     want = ({k: v * n for k, v in STUDENT_LAUNCHES.items()} if cuda
-            else {k: 0 for k in launches})
+            else launches_of())
     require(launches == want, f"student launches {launches}, expected "
             f"{want}")
     require(all(np.isfinite(losses)), f"non-finite student loss {losses}")
@@ -1324,7 +1432,7 @@ def train_student(device, cfg: Config, batch_size: int, steps: int,
     frozen_loss = float(logs_f["loss"])
     frozen_ms = 1e3 * (time.perf_counter() - start)
     launches_f = dict(build.launch_counts)
-    want_f = (FROZEN_LAUNCHES if cuda else {k: 0 for k in launches_f})
+    want_f = FROZEN_LAUNCHES if cuda else launches_of()
     require(launches_f == want_f, f"frozen-teacher launches {launches_f}, "
             f"expected {want_f}")
     require(np.isfinite(frozen_loss) and all(
@@ -1406,16 +1514,12 @@ def student_cli(device, runs=STUDENT_CLI) -> list[dict]:
                     f"{flags}: the checkpoint's trackers {saved['extra']}")
                 per_step, per_eval = STUDENT_LAUNCHES, STUDENT_INFER_LAUNCHES
             else:
-                per_step = {"polar_preprocess": 1,
-                            "band_warp_fwd": WARPS_PER_STEP,
-                            "band_warp_fwd_lanes": 0,
-                            "band_warp_bwd": WARPS_PER_STEP}
-                per_eval = {"polar_preprocess": 1, "band_warp_fwd": 0,
-                            "band_warp_fwd_lanes": 0, "band_warp_bwd": 0}
+                per_step = selfsup_launches(cfg)
+                per_eval = launches_of(polar_preprocess=1)
             want = ({k: per_step[k] * counts["train_steps"]
                      + per_eval[k] * counts["eval_batches"]
                      for k in per_step} if device.type == "cuda"
-                    else {k: 0 for k in launches})
+                    else launches_of())
             require(launches == want, f"{flags}: launches {launches}, "
                     f"expected {want}")
             out.append({"flags": flags, "scenes": scenes, "epochs": epochs,
@@ -1473,9 +1577,10 @@ def _ref_pre_encoder_key(rest: str, blocks: dict) -> str:
 def reference_key(key: str, scales) -> tuple[str, str] | None:
     """A state_dict key of PolarDepthNet in the separate-encoder layout ->
     (component file, the reference's key); None for a BatchNorm's batch
-    count, which the import does not read."""
+    count, which the import does not read, and for the attention, of which
+    the reference saves no file."""
     comp, rest = key.split(".", 1)
-    if rest.endswith("num_batches_tracked"):
+    if rest.endswith("num_batches_tracked") or comp == "cross_modal_attention":
         return None
     if comp == "normals_encoder":
         return comp, _ref_pre_encoder_key(
@@ -1574,6 +1679,50 @@ def gif_durations(path: str) -> list:
         return [f.info["duration"] for f in ImageSequence.Iterator(im)]
 
 
+def export_round_trip(cfg: Config, weights: dict, device, rng, tmp: str,
+                      out: dict):
+    """cfg's model with weights exported with a symbolic batch (exactly one
+    polar-preprocess node), saved under tmp, loaded fresh, and held against
+    Predictor at cfg's batch and at 3, K1 once per call.  Fills out's
+    export_s, nodes, meta and rel_err; returns (a function of a host batch
+    running the loaded program, the Predictor)."""
+    on_card = torch.device(device).type == "cuda"
+    start = time.perf_counter()
+    program = make_export(cfg, weights, device=device)
+    out["export_s"] = time.perf_counter() - start
+    out["nodes"] = preprocess_nodes(program)
+    require(out["nodes"] == 1, f"the exported graph holds {out['nodes']}"
+            " polar-preprocess nodes, expected 1")
+    path = os.path.join(tmp, "model.pt2")
+    save_artifact(program, path, cfg)
+    with open(path + ".json") as f:
+        out["meta"] = json.load(f)
+    del program
+    loaded = load_artifact(path).module()
+    predictor = Predictor(cfg, weights, device=device)
+
+    def run_program(batch):
+        return loaded(*(torch.as_tensor(batch[k]).to(device)
+                        for k in ("color", "pol"))).cpu().numpy()
+
+    out["rel_err"] = {}
+    for b in (cfg.batch_size, 3):
+        batch = random_batch(rng, b, cfg)
+        before = build.launch_counts["polar_preprocess"]
+        got = run_program(batch)
+        added = build.launch_counts["polar_preprocess"] - before
+        require(added == int(on_card), f"the loaded program launched K1 "
+                f"{added} times in one call at batch {b}")
+        want = predictor.predict(batch)
+        require(got.shape == want.shape == (b, cfg.height, cfg.width, 1),
+                f"program depth {got.shape}, Predictor's {want.shape}")
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        out["rel_err"][b] = err
+        require(err <= EXPORT_RTOL, f"loaded program vs Predictor at "
+                f"batch {b}: relative error {err:.3e}")
+    return run_program, predictor
+
+
 def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
            seed: int = 0, ar_frames: int = AR_FRAMES) -> dict:
     """The published model in and out of the port through its entry points:
@@ -1584,7 +1733,6 @@ def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
     ImageNet-shaped ResNet18 weights through train --weights_init
     pretrained; and pointcloud, analyze and ar on the predictions."""
     device = torch.device(device)
-    on_card = device.type == "cuda"
     rng = np.random.default_rng(seed + 10)
     weights = seeded_state_dict(cfg, seed)
     common = ["--height", str(cfg.height), "--width", str(cfg.width),
@@ -1593,40 +1741,8 @@ def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
     out = {}
     build.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        start = time.perf_counter()
-        program = make_export(cfg, weights, device=device)
-        out["export_s"] = time.perf_counter() - start
-        out["nodes"] = preprocess_nodes(program)
-        require(out["nodes"] == 1, f"the exported graph holds {out['nodes']}"
-                " polar-preprocess nodes, expected 1")
-        path = os.path.join(tmp, "model.pt2")
-        save_artifact(program, path, cfg)
-        with open(path + ".json") as f:
-            out["meta"] = json.load(f)
-        del program
-        loaded = load_artifact(path).module()
-        predictor = Predictor(cfg, weights, device=device)
-
-        def run_program(batch):
-            return loaded(*(torch.as_tensor(batch[k]).to(device)
-                            for k in ("color", "pol"))).cpu().numpy()
-
-        out["rel_err"] = {}
-        for b in (cfg.batch_size, 3):
-            batch = random_batch(rng, b, cfg)
-            before = build.launch_counts["polar_preprocess"]
-            got = run_program(batch)
-            added = build.launch_counts["polar_preprocess"] - before
-            require(added == int(on_card), f"the loaded program launched K1 "
-                    f"{added} times in one call at batch {b}")
-            want = predictor.predict(batch)
-            require(got.shape == want.shape == (b, cfg.height, cfg.width, 1),
-                    f"program depth {got.shape}, Predictor's {want.shape}")
-            err = float(np.max(np.abs(got - want) / np.abs(want)))
-            out["rel_err"][b] = err
-            require(err <= EXPORT_RTOL, f"loaded program vs Predictor at "
-                    f"batch {b}: relative error {err:.3e}")
-
+        run_program, predictor = export_round_trip(cfg, weights, device, rng,
+                                                   tmp, out)
         batch = random_batch(rng, cfg.batch_size, cfg)
         run_program(batch)
         predictor.predict(batch)
@@ -1637,7 +1753,7 @@ def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
                 start = time.perf_counter()
                 fn(batch)
                 out[key].append(1e3 * (time.perf_counter() - start))
-        del loaded, predictor
+        del run_program, predictor
 
         # reference .pth files of the same weights
         ref_dir = os.path.join(tmp, "weights_ref")
@@ -1737,7 +1853,108 @@ def deploy(device, cfg: Config = PUBLISHED, requests: int = 5,
     return out
 
 
-# --- phase 11 ---------------------------------------------------------------
+# --- phases 11 and 12: the attention variant and the residual poses ---------
+
+# The command line's runs: the published run with the attention for one
+# epoch, and the self-supervised run with the residual-pose pass
+ATTENTION_CLI_SCENES = 24
+RES_POSE_CLI = (("--depth_supervision_only false --res_pose", 12, 1),)
+
+
+def attention_cfg() -> Config:
+    return PUBLISHED.replace(use_attention=True)
+
+
+def res_pose_cfg() -> Config:
+    return PUBLISHED.replace(depth_supervision_only=False, res_pose=True)
+
+
+def attention_cli(device, flags=(),
+                  scenes: int = ATTENTION_CLI_SCENES) -> dict:
+    """``train --use_attention --synthetic <scenes> --num_epochs 1`` in
+    process (PUBLISHED unless flags say otherwise): the epoch's loss
+    finite, the last table's "all" row finite over every scene, the
+    checkpoint holding the attention's weights, and K1 launched once per
+    train step, eval batch and logged image."""
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        build.reset_launch_counts()
+        start = time.perf_counter()
+        trainer, results = cli.train([
+            "--use_attention", *flags, "--synthetic", str(scenes),
+            "--num_epochs", "1", "--device", str(device), "--log_dir", tmp])
+        wall = time.perf_counter() - start
+        launches = dict(build.launch_counts)
+        run = os.path.join(tmp, trainer.cfg.model_name)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        train_rows = [r for r in rows if r["mode"] == "train"]
+        require(len(train_rows) == 1 and all(
+            np.isfinite(v) for k, v in train_rows[0].items()
+            if k.startswith("loss")), f"train rows {train_rows}")
+        last = results["epoch_0"]["all"]
+        require(last["frames"] == scenes and all(
+            np.isfinite(v) for v in last.values()),
+            f"the last table's 'all' row {last}")
+        steps = scenes // trainer.cfg.batch_size
+        saved = torch.load(os.path.join(
+            run, "checkpoints", f"step_{steps}", checkpoint.STATE_FILE),
+            map_location="cpu", weights_only=True)["model"]
+        require(any(k.startswith("cross_modal_attention.") for k in saved),
+                "the checkpoint holds no attention weights")
+        counts = dict(trainer.counts)
+        want = launches_of(polar_preprocess=sum(counts.values())
+                           if device.type == "cuda" else 0)
+        require(launches == want, f"launches {launches}, expected {want}")
+    return {"wall_s": wall, "loss": train_rows[0]["loss"], "all": last,
+            "launches": launches, "counts": counts}
+
+
+def serve_in_turns(device, cfgs: dict, requests: int, seed: int) -> dict:
+    """{name: ms of each of ``requests`` calls} of each config's Predictor
+    on one batch, the configs called in turns after a warm-up of each, so
+    that the card's state is the same for all."""
+    first = next(iter(cfgs.values()))
+    batch = random_batch(np.random.default_rng(seed + 12), first.batch_size,
+                         first)
+    predictors = {name: Predictor(c, seeded_state_dict(c, seed),
+                                  device=device)
+                  for name, c in cfgs.items()}
+    for p in predictors.values():
+        p.predict(batch)
+    out = {name: [] for name in cfgs}
+    for _ in range(requests):
+        for name, p in predictors.items():
+            start = time.perf_counter()
+            p.predict(batch)
+            out[name].append(1e3 * (time.perf_counter() - start))
+    return out
+
+
+def attention_phase(device, cfg: Config, requests: int, steps: int,
+                    seed: int, cli_flags=(),
+                    cli_scenes: int = ATTENTION_CLI_SCENES) -> dict:
+    """The arch1++_attention variant (cfg, with use_attention): served
+    through Predictor, and in turns with the same model without the
+    attention on one batch; one warm-up and ``steps`` supervised steps;
+    its export round trip; and the command line's run."""
+    out = {"serve": serve(device, cfg, requests=requests, seed=seed),
+           "turns": serve_in_turns(
+               device, {"attention": cfg,
+                        "without": cfg.replace(use_attention=False)},
+               requests, seed),
+           "train": train_supervised(device, cfg, cfg.batch_size, steps,
+                                     seed),
+           "export": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        export_round_trip(cfg, seeded_state_dict(cfg, seed), device,
+                          np.random.default_rng(seed + 11), tmp,
+                          out["export"])
+    out["cli"] = attention_cli(device, cli_flags, cli_scenes)
+    return out
+
+
+# --- phase 13 ---------------------------------------------------------------
 
 def result_line(device) -> dict:
     device = torch.device(device)
@@ -1969,7 +2186,61 @@ def main() -> int:
               f"truth as the prediction {dp['gt_gif_frames']} distinct "
               f"frames")
         print(f"  launches {dp['launches']}")
-    with phase("11 result"):
+    with phase("11 attention"):
+        at = attention_phase(device, attention_cfg(), args.requests,
+                             args.steps, args.seed)
+        sa, ta, ea, ca = at["serve"], at["train"], at["export"], at["cli"]
+        print(f"  serve: {args.requests} requests of {cfg.batch_size}x"
+              f"{cfg.height}x{cfg.width}: {sa['ms_per_request']:.2f} "
+              f"ms/request (median), {sa['images_per_s']:.1f} images/s; max "
+              f"|depth - plain preprocess| {sa['err_plain']:.3e} m, max "
+              f"|depth - CPU| {sa['err_cpu']:.3e} m (limit {DEPTH_TOL}); "
+              f"launches {sa['launches']}  [{name_power}]")
+        tu = at["turns"]
+        print(f"  {args.requests} requests of one batch in turns: with the "
+              f"attention {np.median(tu['attention']):.2f} ms (median; "
+              f"{['%.2f' % x for x in tu['attention']]}), without "
+              f"{np.median(tu['without']):.2f} ms "
+              f"({['%.2f' % x for x in tu['without']]})  [{name_power}]")
+        print(f"  supervised step: {ta['ms_per_step']:.2f} ms/step (median), "
+              f"{ta['images_per_s']:.2f} images/s over the timed window, "
+              f"peak memory {ta['max_memory_bytes'] / 2 ** 30:.2f} GiB (the "
+              f"published step's {sv['max_memory_bytes'] / 2 ** 30:.2f}); "
+              f"losses {['%.6f' % x for x in ta['losses']]}  [{name_power}]")
+        errs = ", ".join(f"batch {b} {e:.3e}"
+                         for b, e in ea["rel_err"].items())
+        print(f"  export {ea['export_s']:.2f} s, {ea['nodes']} "
+              f"polar_preprocess node; loaded program vs Predictor, max "
+              f"relative error: {errs} (limit {EXPORT_RTOL})")
+        print(f"  train --use_attention --synthetic {ATTENTION_CLI_SCENES} "
+              f"--num_epochs 1: {ca['wall_s']:.2f} s in all, loss "
+              f"{ca['loss']:.6f}, all row abs_rel {ca['all']['abs_rel']:.5f},"
+              f" launches {ca['launches']} = {ca['counts']}  [{name_power}]")
+    with phase("12 res_pose"):
+        rp = train_selfsup(device, res_pose_cfg(), cfg.batch_size,
+                           args.steps, args.seed)
+        print(f"  {args.steps} self-supervised steps with res_pose of "
+              f"{cfg.batch_size}x{cfg.height}x{cfg.width}: "
+              f"{rp['ms_per_step']:.2f} ms/step (median; phase 6 without it "
+              f"{ss['ms_per_step']:.2f}), {rp['images_per_s']:.2f} images/s "
+              f"over the timed window, peak memory "
+              f"{rp['max_memory_bytes'] / 2 ** 30:.2f} GiB  [{name_power}]")
+        print(f"  losses {['%.6f' % x for x in rp['losses']]}")
+        print(f"  launches {rp['launches']} ({rp['launches_per_step']} per "
+              f"step)")
+        print(f"  step with the plain warps: loss {rp['loss_plain']:.7f} vs "
+              f"{rp['loss_kernel']:.7f} (rel err {rp['loss_rel_err']:.3e}, "
+              f"limit {STEP_LOSS_RTOL}); gradients: worst "
+              f"{rp['grad_worst']} at {rp['grad_err_over_limit']:.3f} of "
+              f"its limit; median relative err "
+              f"{rp['grad_rel_err_median']:.3e}")
+        for r in student_cli(device, RES_POSE_CLI):
+            print(f"  train {r['flags']} --synthetic {r['scenes']} "
+                  f"--num_epochs {r['epochs']}: {r['wall_s']:.2f} s in all, "
+                  f"losses per epoch {['%.6f' % x for x in r['losses']]}, "
+                  f"last table's all row abs_rel {r['all']['abs_rel']:.5f}, "
+                  f"launches {r['launches']}  [{name_power}]")
+    with phase("13 result"):
         par = wp["parallax"]
         warp_err = max(max(v["errors"]["out"], v["errors"]["dix"],
                            v["errors"]["diy"]) for v in wp.values())
@@ -1995,6 +2266,18 @@ def main() -> int:
                 "bound_ms": par["bounds"][k][0],
                 "bound_by": par["bounds"][k][1],
                 "library_ms": par["times"][k + "_library"]})
+        kernels.append({
+            "name": "band_warp_img_grad", "route": "cuda",
+            "source": "polardepth_tpu_torch/csrc/band_warp.cu",
+            "replaces": "none: the image cotangent of the custom VJP at "
+                        "polardepth_tpu/ops/pallas/band_warp.py:350",
+            "launches": rp["launches"]["band_warp_img_grad"],
+            "max_abs_err": max(v["errors"]["img_grad"] for v in wp.values()),
+            "ms": par["times"]["img"], "host_ms": par["times"]["img_host"],
+            "plain_ms": par["times"]["img_plain"],
+            "bound_ms": par["bounds"]["img"][0],
+            "bound_by": par["bounds"]["img"][1],
+            "library_ms": par["times"]["img_library"]})
         kernels.append({
             "name": "band_warp_fwd_lanes", "route": "cuda",
             "source": "polardepth_tpu_torch/csrc/band_warp.cu",

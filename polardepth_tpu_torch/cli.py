@@ -1,9 +1,10 @@
 """Command-line entry points of the port (polardepth_tpu/cli.py).
 
   python -m polardepth_tpu_torch train    [flags]  - training: the published
-        supervised run, or with --depth_supervision_only false the
-        self-supervised one, or with --train_student the ManyDepth
-        teacher-student one
+        supervised run (with --use_attention the arch1++_attention
+        variant), or with --depth_supervision_only false the
+        self-supervised one (with --res_pose its residual-pose pass), or
+        with --train_student the ManyDepth teacher-student one
   python -m polardepth_tpu_torch evaluate [flags]  - per-material eval table
         of --weights (a checkpoint) or --reference_weights (the
         reference's .pth files); --save_pred_disps writes the disparities
@@ -21,7 +22,9 @@ MonodepthOptions, options.py:13-380), for every field of the port's Config,
 so that train_supervised_GT.sh maps one to one.  --synthetic N substitutes N
 generated scenes for the HAMMER dataset; --device picks the device (the
 card by default).  A flag of a path the port does not have yet raises
-instead of being ignored.
+instead of being ignored.  As in the JAX package, --use_attention acts on
+the supervised net alone and --res_pose on the self-supervised step alone;
+other paths ignore them.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                  "disable_automasking", "supervise_pose",
                  "enable_12channels", "train_student", "pose_input",
                  "use_future_frame", "no_matching_augmentation",
-                 "disable_motion_masking"):
+                 "disable_motion_masking", "res_pose", "use_attention"):
         p.add_argument(f"--{name}", action="store_true",
                        default=getattr(d, name))
     p.add_argument("--warp_impl", type=str, default=d.warp_impl,
@@ -94,16 +97,14 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="use N synthetic scenes instead of HAMMER data")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the model (default: the card)")
-    # paths of the JAX package that the port does not have yet: accepted
-    # only to refuse them
-    for name in ("train_dpt", "res_pose", "use_attention"):
-        p.add_argument(f"--{name}", action="store_true", default=False)
+    # a path of the JAX package that the port does not have yet: accepted
+    # only to refuse it
+    p.add_argument("--train_dpt", action="store_true", default=False)
 
 
 def _refuse_unported(a) -> None:
-    for name in ("train_dpt", "res_pose", "use_attention"):
-        if getattr(a, name):
-            raise NotImplementedError(f"--{name}: not ported yet")
+    if a.train_dpt:
+        raise NotImplementedError("--train_dpt: not ported yet")
     if a.decode_backend != "cv2":
         raise NotImplementedError(
             f"--decode_backend {a.decode_backend}: not ported yet (the port "

@@ -9,8 +9,8 @@ imports nothing of the JAX package.  Field
 names and defaults are those of the reference's flags
 (manydepth/options.py); the defaults reproduce the published run,
 train_supervised_GT.sh.  Fields of paths this package does not port yet
-(residual poses, DPT, attention, TPU layout plans) are left out and come
-with their slice.
+(DPT, parallelism, TPU layout plans) are left out and come with their
+slice.
 """
 
 from __future__ import annotations
@@ -55,6 +55,16 @@ class Config:
     # of the teacher's pose net
     pose_input: bool = False
     supervise_pose: bool = False
+    # residual-pose refinement pass of the self-supervised step
+    res_pose: bool = False
+    # arch1++_attention: cross-modal attention between the RGB stem and the
+    # JointEncoder of the supervised net (models/attention.py).
+    # attention_pe_in_stream is the legacy integration (the position
+    # encoding stays in the fused features); attention_gate scales the
+    # attention's delta by a learnable gamma (init 0.1)
+    use_attention: bool = False
+    attention_pe_in_stream: bool = False
+    attention_gate: bool = True
     augment_xolp: bool = True
     augment_normals: bool = True
     # the depth encoder reads the four captures, each replicated to 3

@@ -1,10 +1,14 @@
-// Banded bilinear warp for Hopper (sm_90a): forward (K2) and grid gradient
-// (K3) of grid_sample(padding_mode="border") on coordinates that the caller
-// has already clamped into the image and into a K-row band.
+// Banded bilinear warp for Hopper (sm_90a): forward (K2), grid gradient
+// (K3) and image gradient (K4) of grid_sample(padding_mode="border") on
+// coordinates that the caller has already clamped into the image and into a
+// K-row band.
 //
 // Replaces the TPU kernels of polardepth_tpu/ops/pallas/band_warp.py:
 //   K2  _pallas_fwd (:356), pl.pallas_call at :376, body _fwd_kernel (:158)
 //   K3  _band_bwd (:392), pl.pallas_call at :417, body _bwd_kernel (:217)
+// K4 has no TPU kernel: the JAX custom VJP returns a zero image cotangent
+// (:350-351), and the JAX package's exact routes get the image gradient
+// from XLA's autodiff of a gather.
 //
 // What the TPU kernels did and why none of it carries over.  The TPU gathers
 // slowly, so K2 fetched a (K*C, W+1) row band per output row by DMA and did
@@ -46,9 +50,26 @@
 // of 4 takes one thread per pixel with scalar stores.  K3 is one thread per
 // pixel: it reads g as the forward writes out, and writes two floats.
 //
+// K4, the image gradient, is the transpose of K2: each output pixel adds
+// its cotangent times the four bilinear weights into the same four clamped
+// taps that K2 reads, d img[y0, x0] += (1-fx)(1-fy) g and so on.  Several
+// output pixels hit one source pixel, so the adds are atomic (RED, resolved
+// in L2) into a buffer that the launcher zeroes first on the same stream.
+// Its bound is bytes: it reads g, ix and iy once and writes the zeroed and
+// the accumulated gradient.  What limits it is the L2's rate of atomic
+// operations: 4C scalar atomics per pixel (12 at C = 3; 22 M at the
+// training shape) took 0.29 ms on the H100, 12x the byte bound.  So a
+// pixel's two taps in a row, 2C contiguous floats, go in with sm_90's
+// 16- and 8-byte vector atomics where their alignment allows (2 to 4
+// operations for a row at C = 3), and an all-zero vector, from a zero
+// weight, is not sent.  One thread per output pixel, C compiled for 1 and
+// 3.
+//
 // Rounding: built with -fmad=false and written in the order of the plain
 // torch versions in ops/band_warp.py, so the two agree to the last bit or
-// within a few ulps (the channel sums of K3).
+// within a few ulps (the channel sums of K3).  K4's products are the plain
+// version's to the bit, but its atomic sums run in the order the threads
+// reach them, which changes from run to run.
 //
 // Plain C interface for ctypes (ops/build.py).  Each launch function checks
 // its arguments, launches on the given stream and returns cudaGetLastError().
@@ -195,6 +216,115 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Adds the N values of the span [lo | hi] (lo, hi of N/2 each, or lo alone
+// when HALF == N) into p[0, N), with the widest atomics the addresses
+// allow: 16-byte (float4) and 8-byte (float2) vector atomics of sm_90, else
+// 4 bytes.  M is p's offset in floats within a 16-byte line, so every
+// choice is made at compile time.  Each lane of a vector atomic is its own
+// float add, as a scalar atomic's; a vector whose lanes are all 0 (a weight
+// of 0, the band's clamped rows, the border's clamped columns) is not sent:
+// adding 0 leaves a sum that started at +0 as it was, bit for bit.
+template <int N, int HALF, int M, int I = 0>
+__device__ __forceinline__ void red_span(float* p, const float (&lo)[HALF],
+                                         const float (&hi)[HALF]) {
+  if constexpr (I < N) {
+    constexpr int pos = (M + I) % 4;
+    const auto v = [&](int i) { return i < HALF ? lo[i] : hi[i - HALF]; };
+    if constexpr (pos == 0 && I + 4 <= N) {
+      const float4 x = make_float4(v(I), v(I + 1), v(I + 2), v(I + 3));
+      if (x.x != 0.0f || x.y != 0.0f || x.z != 0.0f || x.w != 0.0f)
+        atomicAdd(reinterpret_cast<float4*>(p + I), x);
+      red_span<N, HALF, M, I + 4>(p, lo, hi);
+    } else if constexpr (pos % 2 == 0 && I + 2 <= N) {
+      const float2 x = make_float2(v(I), v(I + 1));
+      if (x.x != 0.0f || x.y != 0.0f)
+        atomicAdd(reinterpret_cast<float2*>(p + I), x);
+      red_span<N, HALF, M, I + 2>(p, lo, hi);
+    } else {
+      if (v(I) != 0.0f) atomicAdd(p + I, v(I));
+      red_span<N, HALF, M, I + 1>(p, lo, hi);
+    }
+  }
+}
+
+template <int N, int HALF>
+__device__ __forceinline__ void red_add(float* p, const float (&lo)[HALF],
+                                        const float (&hi)[HALF]) {
+  switch ((reinterpret_cast<size_t>(p) / sizeof(float)) % 4) {
+    case 0: red_span<N, HALF, 0>(p, lo, hi); break;
+    case 1: red_span<N, HALF, 1>(p, lo, hi); break;
+    case 2: red_span<N, HALF, 2>(p, lo, hi); break;
+    default: red_span<N, HALF, 3>(p, lo, hi); break;
+  }
+}
+
+// One source row's two taps of K4: the C values of tap x0 and the C of tap
+// x1.  Where x1 = x0 + 1 the two taps are one contiguous span of 2C floats;
+// where the column is clamped (x1 = x0, x0 = W-1) each goes in on its own.
+template <int C>
+__device__ __forceinline__ void red_row(float* row, int x0, int x1,
+                                        const float (&a)[C],
+                                        const float (&b)[C]) {
+  if (x1 == x0 + C) {
+    red_add<2 * C, C>(row + x0, a, b);
+  } else {
+    red_add<C, C>(row + x0, a, a);
+    red_add<C, C>(row + x1, b, b);
+  }
+}
+
+// K4: one thread per output pixel, g's C channels times the bilinear
+// weights added into the four taps of grad (B, H, W, C), zeroed by the
+// launcher.  CT = 3 (the colour frames res_pose re-warps) goes through
+// red_row's vector atomics; CT == 0 reads C at run time and adds each value
+// with a scalar atomic.
+template <int CT>
+__global__ void __launch_bounds__(kThreads)
+    band_warp_img_grad_kernel(const float* __restrict__ ix,
+                              const float* __restrict__ iy,
+                              const float* __restrict__ g,
+                              float* __restrict__ grad, int H, int W,
+                              int C_rt, long long per_image, long long n) {
+  const int C = CT > 0 ? CT : C_rt;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       p < n; p += stride) {
+    // taps() gives the row pointers into grad; it only reads the
+    // coordinates, never the plane
+    const Taps t = taps(grad + (p / per_image) * H * W * C, __ldg(ix + p),
+                        __ldg(iy + p), H, W, C);
+    float* r0 = const_cast<float*>(t.r0);
+    float* r1 = const_cast<float*>(t.r1);
+    const float w00 = (1.0f - t.fx) * (1.0f - t.fy);
+    const float w01 = t.fx * (1.0f - t.fy);
+    const float w10 = (1.0f - t.fx) * t.fy;
+    const float w11 = t.fx * t.fy;
+    const float* gp = g + p * C;
+    if constexpr (CT > 0) {
+      float a0[CT], b0[CT], a1[CT], b1[CT];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const float gc = __ldg(gp + c);
+        a0[c] = w00 * gc;
+        b0[c] = w01 * gc;
+        a1[c] = w10 * gc;
+        b1[c] = w11 * gc;
+      }
+      red_row<CT>(r0, t.x0, t.x1, a0, b0);
+      red_row<CT>(r1, t.x0, t.x1, a1, b1);
+    } else {
+      for (int c = 0; c < C; ++c) {
+        const float gc = __ldg(gp + c);
+        atomicAdd(r0 + t.x0 + c, w00 * gc);
+        atomicAdd(r0 + t.x1 + c, w01 * gc);
+        atomicAdd(r1 + t.x0 + c, w10 * gc);
+        atomicAdd(r1 + t.x1 + c, w11 * gc);
+      }
+    }
+  }
+}
+
 unsigned blocks_for(long long items) {
   const long long want = (items + kThreads - 1) / kThreads;
   return static_cast<unsigned>(want < (1LL << 30) ? want : (1LL << 30));
@@ -276,6 +406,30 @@ int band_warp_bwd_launch(const float* img, const float* ix, const float* iy,
   } else {
     band_warp_bwd_kernel<0><<<blocks, kThreads, 0, s>>>(
         img, ix, iy, g, dix, diy, H, W, C, per_image, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: ix, iy (B, OH, OW) and the cotangent g (B, OH, OW, C) -> grad
+// (B, H, W, C), which this function zeroes and then accumulates into.
+int band_warp_img_grad_launch(const float* ix, const float* iy,
+                              const float* g, float* grad, int H, int W,
+                              int C, long long per_image, long long n,
+                              void* stream) {
+  if (bad_shape(H, W, C, per_image, n)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long B = n / per_image;
+  const cudaError_t zeroed = cudaMemsetAsync(
+      grad, 0, static_cast<size_t>(B) * H * W * C * sizeof(float), s);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  if (n == 0) return 0;
+  const int blocks = static_cast<int>(blocks_for(n));
+  if (C == 3) {
+    band_warp_img_grad_kernel<3><<<blocks, kThreads, 0, s>>>(
+        ix, iy, g, grad, H, W, C, per_image, n);
+  } else {
+    band_warp_img_grad_kernel<0><<<blocks, kThreads, 0, s>>>(
+        ix, iy, g, grad, H, W, C, per_image, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@ A JAX tree is what ``jax.device_get(state.params)`` and
 ``jax.device_get(state.batch_stats)`` give: nested dicts of numpy arrays keyed
 by flax module names.  The port's modules carry the same names, so a flax path
 becomes a ``state_dict`` key by joining it with dots; conv kernels go from
-HWIO to OIHW, BatchNorm ``scale`` becomes ``weight`` and the statistics
-``mean``/``var`` become ``running_mean``/``running_var``.
+HWIO to OIHW, ``Dense`` kernels (in, out) to ``nn.Linear``'s (out, in),
+BatchNorm's and LayerNorm's ``scale`` becomes ``weight``, a ``gamma`` leaf
+(the attention's gates) keeps its name, and the statistics ``mean``/``var``
+become ``running_mean``/``running_var``.
 
 The trees of the self-supervised model (train/selfsup.py:SelfSupModel) hold
 the depth net under ``mono`` and the pose net under ``pose_net`` (its
@@ -66,7 +68,12 @@ def _leaves(tree: dict, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                "gamma": "gamma"}
+# flax kernel layout -> torch weight layout, by the kernel's rank: conv
+# HWIO -> OIHW, Dense (in, out) -> Linear (out, in)
+_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -80,7 +87,7 @@ def state_dict_from_jax(params: dict, batch_stats: dict,
         if path[-1] not in _PARAM_NAMES:
             raise KeyError(f"unknown parameter {'/'.join(path)}")
         if path[-1] == "kernel":
-            leaf = leaf.transpose(3, 2, 0, 1)              # HWIO -> OIHW
+            leaf = leaf.transpose(_TO_TORCH[leaf.ndim])
         key = ".".join(path[:-1] + (_PARAM_NAMES[path[-1]],))
         sd[key] = torch.from_numpy(np.array(leaf, np.float32))
     for path, leaf in _leaves(to_layout(batch_stats, fused_encoders)):
@@ -105,12 +112,12 @@ def jax_from_state_dict(state_dict: dict, fused_encoders: bool = False):
             continue
         if name in ("running_mean", "running_var"):
             dst, leaf = stats, name[len("running_"):]
-        elif name == "weight" and arr.ndim == 4:
-            dst, leaf, arr = params, "kernel", arr.transpose(2, 3, 1, 0)
+        elif name == "weight" and arr.ndim in _TO_FLAX:
+            dst, leaf, arr = params, "kernel", arr.transpose(_TO_FLAX[arr.ndim])
         elif name == "weight":
             dst, leaf = params, "scale"
-        elif name == "bias":
-            dst, leaf = params, "bias"
+        elif name in ("bias", "gamma"):
+            dst, leaf = params, name
         else:
             raise KeyError(f"unknown state_dict entry {key}")
         for p in path:

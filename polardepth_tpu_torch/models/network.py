@@ -3,8 +3,12 @@
 
 ShallowResNet18Stem (RGB) + optional XOLP encoder + optional normals encoder
 (or both as one FusedModalityEncoders stack) -> JointEncoder -> DepthDecoder.
+With ``use_attention`` (the arch1++_attention variant) the RGB stem's last
+features attend to the modality encoders' through CrossModalAttention
+before the JointEncoder; the decoder's skips keep the stem's own features.
 Children carry the reference's component names (rgb_encoder, xolp_encoder,
-normals_encoder, fused_encoders, joint_encoder, mono_depth).
+normals_encoder, fused_encoders, cross_modal_attention, joint_encoder,
+mono_depth).
 
 With ``augment_normals`` the polarization preprocess goes through
 ops/polar_preprocess.fused_polar_preprocess, whose CUDA kernel runs for a
@@ -19,6 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from polardepth_tpu_torch.models.attention import CrossModalAttention
 from polardepth_tpu_torch.models.depth_decoder import DepthDecoder
 from polardepth_tpu_torch.models.pre_encoders import (
     FusedModalityEncoders, JointEncoder, ShallowEncoder, ShallowNormalsEncoder)
@@ -32,7 +37,9 @@ class PolarDepthNet(nn.Module):
                  dropout_rate: float = 0.1,
                  scales: Sequence[int] = (0, 1, 2, 3),
                  refraction_index: float = 1.5, fused_encoders: bool = False,
-                 in_ch: int = 3):
+                 in_ch: int = 3, use_attention: bool = False,
+                 attention_pe_in_stream: bool = False,
+                 attention_gate: bool = True):
         super().__init__()
         if fused_encoders and not (augment_xolp and augment_normals):
             raise ValueError(
@@ -50,8 +57,15 @@ class PolarDepthNet(nn.Module):
                 self.xolp_encoder = ShallowEncoder(2, "XOLP", d)
             if augment_normals:
                 self.normals_encoder = ShallowNormalsEncoder(d)
-        joint_in = 128 + 64 * (int(augment_xolp) + int(augment_normals))
-        self.joint_encoder = JointEncoder(joint_in, d)
+        modal_ch = 64 * (int(augment_xolp) + int(augment_normals))
+        # as in the JAX package, the attention exists only beside a
+        # modality encoder
+        self.use_attention = use_attention and modal_ch > 0
+        if self.use_attention:
+            self.cross_modal_attention = CrossModalAttention(
+                d_model=128, pol_channels=modal_ch,
+                pe_in_stream=attention_pe_in_stream, gate=attention_gate)
+        self.joint_encoder = JointEncoder(128 + modal_ch, d)
         self.mono_depth = DepthDecoder(tuple(scales))
 
     def forward(self, color: torch.Tensor, pol: Optional[torch.Tensor] = None,
@@ -86,6 +100,13 @@ class PolarDepthNet(nn.Module):
                 modality.append(self.xolp_encoder(xolp.permute(0, 3, 1, 2)))
             if self.augment_normals:
                 modality.append(self.normals_encoder(priors))
-        joint = self.joint_encoder(rgb_feats[-1], *modality)
+        rgb_fused = rgb_feats[-1]
+        if self.use_attention:
+            # the modality features are [xolp | normals], the fused stack's
+            # output as it stands
+            pol_feats = torch.cat(modality, dim=1).permute(0, 2, 3, 1)
+            rgb_fused = self.cross_modal_attention(
+                rgb_fused.permute(0, 2, 3, 1), pol_feats).permute(0, 3, 1, 2)
+        joint = self.joint_encoder(rgb_fused, *modality)
         outputs = self.mono_depth(rgb_feats + joint)
         return {k: v.permute(0, 2, 3, 1) for k, v in outputs.items()}

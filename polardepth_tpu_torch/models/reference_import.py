@@ -202,7 +202,9 @@ def load_reference_components(weights_dir: str, model: torch.nn.Module,
     """Load every <component>.pth of weights_dir that the PolarDepthNet
     ``model`` has into it, in place; returns the names loaded.  Raises if
     nothing was found, if a fused model finds one modality encoder alone,
-    or if a present component's shapes do not match the model."""
+    or if a present component's shapes do not match the model.  A model
+    component that no file supplies (always ``cross_modal_attention``: the
+    reference saves none) keeps its values, and the log names it."""
     current = model.state_dict()
     fused = any(k.startswith("fused_encoders.") for k in current)
     sd, loaded = reference_state_dict(weights_dir, current, fused,
@@ -217,5 +219,9 @@ def load_reference_components(weights_dir: str, model: torch.nn.Module,
                 f"{key.split('.')[0]}: checkpoint shapes do not match the "
                 f"model graph at {key} (flag mismatch?)")
     model.load_state_dict({**current, **sd})
-    log(f"reference components loaded: {', '.join(loaded)}")
+    kept = sorted({k.split(".")[0] for k in current}
+                  - {k.split(".")[0] for k in sd})
+    log(f"reference components loaded: {', '.join(loaded)}"
+        + (f"; left at their initialisation: {', '.join(kept)}" if kept
+           else ""))
     return loaded

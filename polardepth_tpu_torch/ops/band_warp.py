@@ -1,5 +1,6 @@
 """Banded bilinear warp: ``grid_sample(padding_mode="border")`` whose source
-rows are clamped into a K-row band, differentiable with respect to the grid.
+rows are clamped into a K-row band, differentiable with respect to the grid
+and the image.
 
 The counterpart of polardepth_tpu/ops/pallas/band_warp.py:band_warp (:431).
 The coordinate arithmetic of that module (``_prep`` :295-323, ``_base_of``
@@ -7,8 +8,12 @@ The coordinate arithmetic of that module (``_prep`` :295-323, ``_base_of``
 copied here in plain, differentiable torch.  On the clamped coordinates the
 TPU kernels reduce to plain bilinear sampling (forward, kernel K2) and its
 gradient with respect to (ix, iy) in the TPU's own conventions (kernel K3);
-csrc/band_warp.cu states them.  ``_BandWarp`` launches those kernels for CUDA
-tensors, and runs the plain torch versions below for CPU tensors.
+csrc/band_warp.cu states them.  The gradient with respect to the image is
+kernel K4, the scatter that transposes K2, which the JAX package does not
+have: its custom VJP gives the image a zero cotangent, where its exact routes
+("patch", "flat4") give the true one, as K4 does.  ``_BandWarp`` launches
+those kernels for CUDA tensors, and runs the plain torch versions below for
+CPU tensors.
 
 The JAX package's ``fast=True`` only rounded the TPU's MXU operands to
 bf16, and its interpret mode ignores it; the port has no such flag and
@@ -30,26 +35,34 @@ _LIB = "band_warp"
 _TX = 128  # the TPU kernel's output-column tile of the hx window
 
 
-# --- the plain versions of the two kernels ----------------------------------
+# --- the plain versions of the kernels --------------------------------------
 
-def _taps(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor):
-    """(fx, fy, v00, v01, v10, v11): the fractions (B, OH, OW, 1) and the four
-    source taps (B, OH, OW, C) at x0 = floor(ix), x1 = min(x0+1, W-1) and
-    likewise in y, as the kernels read them."""
-    b, h, w, c = img.shape
+def tap_index(h: int, w: int, ix: torch.Tensor, iy: torch.Tensor):
+    """(fx, fy, i00, i01, i10, i11): the fractions (B, OH, OW, 1) and the
+    flat source indices y * W + x (B, OH, OW) of the four taps at
+    x0 = floor(ix), x1 = min(x0+1, W-1) and likewise in y, as the kernels
+    take them."""
     x0f, y0f = torch.floor(ix), torch.floor(iy)
     fx, fy = (ix - x0f)[..., None], (iy - y0f)[..., None]
     x0 = x0f.long().clamp(0, w - 1)
     y0 = y0f.long().clamp(0, h - 1)
     x1 = (x0 + 1).clamp(max=w - 1)
     y1 = (y0 + 1).clamp(max=h - 1)
+    return fx, fy, y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1
+
+
+def _taps(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor):
+    """(fx, fy, v00, v01, v10, v11): the fractions (B, OH, OW, 1) and the four
+    source taps (B, OH, OW, C) of ``tap_index``."""
+    b, h, w, c = img.shape
+    fx, fy, *index = tap_index(h, w, ix, iy)
     flat = img.reshape(b, h * w, c)
 
-    def tap(y, x):
-        idx = (y * w + x).reshape(b, -1, 1).expand(-1, -1, c)
+    def tap(i):
+        idx = i.reshape(b, -1, 1).expand(-1, -1, c)
         return torch.gather(flat, 1, idx).reshape(*ix.shape, c)
 
-    return fx, fy, tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1)
+    return (fx, fy, *map(tap, index))
 
 
 def band_warp_fwd_plain(img, ix, iy) -> torch.Tensor:
@@ -71,6 +84,22 @@ def band_warp_bwd_plain(img, ix, iy, g):
     t1 = (1.0 - fx) * v10 + fx * v11
     diy = torch.where(fy[..., 0] > 0, (g * (t1 - t0)).sum(-1), 0.0)
     return dix, diy
+
+
+def band_warp_img_grad_plain(img, ix, iy, g) -> torch.Tensor:
+    """K4's function, the gradient of ``band_warp_fwd_plain`` with respect to
+    the image: the cotangent g (B, OH, OW, C) times each of the four bilinear
+    weights, (1-fx)(1-fy), fx(1-fy), (1-fx)fy and fx fy, added into its tap
+    -> (B, H, W, C).  img gives only the shape."""
+    b, h, w, c = img.shape
+    fx, fy, *index = tap_index(h, w, ix, iy)
+    weights = ((1.0 - fx) * (1.0 - fy), fx * (1.0 - fy), (1.0 - fx) * fy,
+               fx * fy)
+    grad = torch.zeros(b, h * w, c, dtype=g.dtype, device=g.device)
+    for i, wt in zip(index, weights):
+        grad.scatter_add_(1, i.reshape(b, -1, 1).expand(-1, -1, c),
+                          (wt * g).reshape(b, -1, c))
+    return grad.reshape(b, h, w, c)
 
 
 # --- the kernels' wrappers ---------------------------------------------------
@@ -147,10 +176,25 @@ def band_warp_bwd(img, ix, iy, g):
     return dix, diy
 
 
+def band_warp_img_grad(img, ix, iy, g) -> torch.Tensor:
+    """K4: as ``band_warp_bwd`` -> the image's gradient (B, H, W, C).  On the
+    card the sums are atomic, so their order, and the last bits, change from
+    run to run."""
+    device = _check(img, ix, iy, g)
+    if device.type == "cpu":
+        return band_warp_img_grad_plain(img, ix, iy, g)
+    _, h, w, c = img.shape
+    grad = torch.empty_like(img)
+    _launch("band_warp_img_grad_launch", ix.data_ptr(), iy.data_ptr(),
+            g.data_ptr(), grad.data_ptr(), h, w, c, ix.shape[1] * ix.shape[2],
+            ix.numel(), device=device)
+    build.launch_counts["band_warp_img_grad"] += 1
+    return grad
+
+
 class _BandWarp(torch.autograd.Function):
-    """K2 forward, K3 backward.  The image is data, as in the JAX package's
-    custom VJP (ops/pallas/band_warp.py:31-36); ``band_warp`` refuses an
-    image that requires a gradient rather than give it none."""
+    """K2 forward; K3 backward for the coordinates and K4 for the image, each
+    only where its input needs a gradient."""
 
     @staticmethod
     def forward(ctx, img, ix, iy):
@@ -160,8 +204,13 @@ class _BandWarp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         img, ix, iy = ctx.saved_tensors
-        dix, diy = band_warp_bwd(img, ix, iy, g.contiguous())
-        return None, dix, diy
+        g = g.contiguous()
+        d_img = dix = diy = None
+        if ctx.needs_input_grad[0]:
+            d_img = band_warp_img_grad(img, ix, iy, g)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dix, diy = band_warp_bwd(img, ix, iy, g)
+        return d_img, dix, diy
 
 
 # --- the coordinate arithmetic of the JAX package's band_warp ----------------
@@ -230,21 +279,16 @@ def band_warp(img: torch.Tensor, grid: torch.Tensor, *, k: int = 32,
               align_corners: bool = True, hx: int = 0,
               rp: int = 1) -> torch.Tensor:
     """grid_sample(padding_mode='border') of img (B, H, W, C) float32 at grid
-    (B, OH, OW, 2) -> (B, OH, OW, C), through kernels K2 and K3 on the card.
+    (B, OH, OW, 2) -> (B, OH, OW, C), through kernels K2, K3 and K4 on the
+    card.
 
     Exact bilinear wherever each output row's source rows fit the K-row
     band; beyond it the source row is clamped to the band's edge.  hx > 0
     also clamps each 128-column output tile's source columns into an
     hx-wide window, and rp > 1 shares one band between rp output rows, as
-    in the JAX package.  Differentiable with respect to grid only: an image
-    that requires a gradient (with grad mode on) raises.
+    in the JAX package.  Differentiable with respect to grid (K3) and img
+    (K4).
     """
-    if img.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            "band_warp: the image requires a gradient, but the band-warp "
-            "kernels give none to the image (only to the grid); the "
-            "image-gradient kernel is ROADMAP Queue 2 item c.  Warp data, or "
-            "use grid_sample's 'flat4' or 'patch' route.")
     _, h, w, c = img.shape
     geo = band_geometry(h, w, c, grid.shape[1], k, hx, rp)
     ix, iy, _ = prep(img.shape, grid, geo["k"], geo["step"], align_corners,

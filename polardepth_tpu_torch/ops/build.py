@@ -46,6 +46,8 @@ SIGNATURES = {
          (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P, _P)),
         ("band_warp_bwd_launch", _I,
          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _P)),
+        ("band_warp_img_grad_launch", _I,
+         (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P)),
         _ERROR_STRING,
     ),
 }
@@ -55,7 +57,8 @@ SIGNATURES = {
 # sweep's)
 KERNELS = {
     "polar_preprocess": ("polar_preprocess",),
-    "band_warp": ("band_warp_fwd", "band_warp_fwd_lanes", "band_warp_bwd"),
+    "band_warp": ("band_warp_fwd", "band_warp_fwd_lanes", "band_warp_bwd",
+                  "band_warp_img_grad"),
 }
 
 launch_counts = {k: 0 for names in KERNELS.values() for k in names}

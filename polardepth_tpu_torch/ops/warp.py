@@ -10,8 +10,8 @@ coordinate convention (polardepth_tpu/ops/warp.py:1-180).
   patch    one (2, 2, C) window per pixel from a padded copy, with the
            position-rebased weights max(0, 1 - |f - j|) (plain torch),
            border or zeros padding;
-  pallas*  the banded warp of ops/band_warp.py (kernels K2 and K3 on the
-           card), border padding; the name is parsed as the JAX package
+  pallas*  the banded warp of ops/band_warp.py (kernels K2, K3 and K4 on
+           the card), border padding; the name is parsed as the JAX package
            parses it: "pallas[<k>][_fast][_hx[<n>]][_r<rp>]".
 
 Each route reproduces its JAX function's gradients, ties included: the

@@ -7,14 +7,18 @@ each neighbour frame; ``generate_images_pred`` warps every neighbour into
 frame 0 at every scale through ops/warp.grid_sample (with "auto", the banded
 warp kernels K2 and, in the backward pass, K3), and ``selfsup_losses`` adds
 the Monodepth2 photometric loss with automasking, the supervised depth and
-normals terms when ``depth_supervision``, and the smoothness term.
+normals terms when ``depth_supervision``, and the smoothness term.  With
+``res_pose`` the step adds ``residual_reprojection_loss``: the pose net's
+residual poses from each warped source and frame 0, and the warped source
+warped again through them.  That second warp's image carries a gradient
+through depth and pose, which the band warp gives through kernel K4.
 
-Random draws (colour jitter, flip, dropout, the automask tie-break noise)
-come from an explicit ``torch.Generator`` on the model's device; a caller may
-hand any of them in instead, as the tests do with the JAX package's draws.
-With ``matching_ids`` the model also gives the cost volume's lookup poses
-(train/student.py).  Not ported yet: the residual-pose refinement
-(``res_pose``) and the packed photometric form (a TPU layout).
+Random draws (colour jitter, flip, dropout, the automask tie-break noise and
+the residual pass's) come from an explicit ``torch.Generator`` on the
+model's device; a caller may hand any of them in instead, as the tests do
+with the JAX package's draws.  With ``matching_ids`` the model also gives
+the cost volume's lookup poses (train/student.py).  Not ported: the packed
+photometric form (a TPU layout).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from polardepth_tpu_torch.config import Config
 from polardepth_tpu_torch.data.augment import (
@@ -235,6 +240,23 @@ class MatchingPoseNet(nn.Module):
                               matching_ids)
 
 
+def predict_residual_poses(pose_net, cfg: Config, warped: dict,
+                           color0: torch.Tensor) -> dict:
+    """{frame_id: residual T (B, 4, 4)} from pose_net (a PoseNet, or any
+    callable of two frames) on each [warped source, frame 0] pair in
+    temporal order, inverted for past frames
+    (polardepth_tpu/train/selfsup.py:283-302)."""
+    res = {}
+    for f in cfg.frame_ids:
+        if f == 0:
+            continue
+        w = warped[("color", f, 0)]
+        aa, t = pose_net(w, color0) if f < 0 else pose_net(color0, w)
+        res[f] = transformation_from_parameters(aa[:, 0], t[:, 0],
+                                                invert=f < 0)
+    return res
+
+
 def generate_images_pred(cfg: Config, disps: dict, poses: dict,
                          color_frames: torch.Tensor, K: torch.Tensor,
                          inv_K: torch.Tensor):
@@ -295,6 +317,58 @@ def draw_identity_noise(cfg: Config, generator: torch.Generator,
     return {s: torch.randn(batch, cfg.height // 2 ** s, cfg.width // 2 ** s,
                            1, generator=generator, device=generator.device)
             for s in scales}
+
+
+def draw_residual_noise(cfg: Config, generator: torch.Generator,
+                        batch: int) -> dict:
+    """{frame_id: standard normals (B, H, W, 1)} for the residual pass's
+    automask tie-break, one draw per source frame."""
+    return {f: torch.randn(batch, cfg.height, cfg.width, 1,
+                           generator=generator, device=generator.device)
+            for f in cfg.frame_ids if f != 0}
+
+
+def residual_reprojection_loss(cfg: Config, pose_net: nn.Module,
+                               pose_stats: dict, warped: dict, depths: dict,
+                               color0: torch.Tensor, K: torch.Tensor,
+                               inv_K: torch.Tensor,
+                               noise: dict) -> torch.Tensor:
+    """The res_pose refinement loss (polardepth_tpu/train/selfsup.py:530-577;
+    reference trainer.py:548-565, 1158-1165, 1238-1239): the residual pose
+    of each warped source and frame 0 from the same pose net, the warped
+    source warped again through it with frame 0's depth, and the mean of
+    min over frames of min(reprojection of the re-warp, reprojection of the
+    warped source + noise x 1e-5).
+
+    The pose net runs in eval mode on pose_stats, its BatchNorm statistics
+    from before the step's forward (the JAX package's state.batch_stats),
+    with its live parameters, so that the loss reaches them.  noise holds
+    each source frame's standard normals (``draw_residual_noise``)."""
+    h, w = cfg.height, cfg.width
+    use_ssim = not cfg.no_ssim
+    was_training = pose_net.training
+    pose_net.eval()
+    try:
+        res = predict_residual_poses(
+            lambda a, b: functional_call(pose_net, pose_stats, (a, b)), cfg,
+            warped, color0)
+    finally:
+        pose_net.train(was_training)
+    points = backproject_depth(depths[("depth", 0, 0)], inv_K)
+    losses = []
+    for f in cfg.frame_ids:
+        if f == 0:
+            continue
+        src = warped[("color", f, 0)]
+        re_warped = grid_sample(src, project_3d(points, K, res[f], h, w),
+                                padding_mode="border", align_corners=True,
+                                impl=cfg.warp_impl)
+        pair = torch.cat(
+            [reprojection_loss(re_warped, color0, use_ssim),
+             reprojection_loss(src, color0, use_ssim) + noise[f] * 1e-5],
+            dim=-1)
+        losses.append(torch.amin(pair, dim=-1, keepdim=True))
+    return torch.mean(torch.amin(torch.cat(losses, dim=-1), dim=-1))
 
 
 def selfsup_losses(cfg: Config, disps: dict, warped: dict, depths: dict,
@@ -376,14 +450,15 @@ def to_device(batch: dict, device: torch.device) -> dict:
 def make_selfsup_train_step(model: SelfSupModel, cfg: Config):
     """The self-supervised train step on the device of model.
 
-    step(state, batch, generator, *, jitter=None, flip=None, noise=None)
-    -> logs: batch holds color_frames (B, F, H, W, 3) uint8, pol, K, inv_K
-    (+ depth with depth_supervision, rel_poses with supervise_pose);
-    generator (on the model's device) draws what is not handed in:
-    the jitter factors (``color_jitter_factors``), the flip, the automask
-    noise (``draw_identity_noise``) and dropout.  One Adam step updates
-    state in place; the gradients stay on the parameters.  The logs are
-    detached tensors on the device.
+    step(state, batch, generator, *, jitter=None, flip=None, noise=None,
+    res_noise=None) -> logs: batch holds color_frames (B, F, H, W, 3)
+    uint8, pol, K, inv_K (+ depth with depth_supervision, rel_poses with
+    supervise_pose); generator (on the model's device) draws what is not
+    handed in: the jitter factors (``color_jitter_factors``), the flip, the
+    automask noise (``draw_identity_noise``), with res_pose the residual
+    pass's noise (``draw_residual_noise``), and dropout.  One Adam step
+    updates state in place; the gradients stay on the parameters.  The logs
+    are detached tensors on the device.
     """
     cfg.validate()
     needs_pol = cfg.augment_xolp or cfg.augment_normals
@@ -392,20 +467,35 @@ def make_selfsup_train_step(model: SelfSupModel, cfg: Config):
              generator: Optional[torch.Generator] = None, *,
              jitter: Optional[dict] = None,
              flip: Optional[torch.Tensor] = None,
-             noise: Optional[dict] = None) -> dict:
+             noise: Optional[dict] = None,
+             res_noise: Optional[dict] = None) -> dict:
         device = model_device(model)
         batch = to_device(batch, device)
         model.train()
         set_dropout_generator(model, generator)
         pb = preprocess_multiframe(batch, cfg, True, generator, jitter, flip)
+        b = pb["color"].shape[0]
         if noise is None:
-            noise = draw_identity_noise(cfg, generator, pb["color"].shape[0])
+            noise = draw_identity_noise(cfg, generator, b)
+        if cfg.res_pose:
+            if res_noise is None:
+                res_noise = draw_residual_noise(cfg, generator, b)
+            # the train-mode forward below moves the running statistics
+            pose_stats = {k: v.clone()
+                          for k, v in model.pose_net.named_buffers()}
         state.optimizer.zero_grad(set_to_none=True)
         disps, poses = model(pb["color_frames_aug"],
                              pol=pb["pol"] if needs_pol else None)
         warped, depths = generate_images_pred(
             cfg, disps, poses, pb["color_frames"], pb["K"], batch["inv_K"])
         loss, logs = selfsup_losses(cfg, disps, warped, depths, pb, noise)
+        if cfg.res_pose:
+            res_loss = residual_reprojection_loss(
+                cfg, model.pose_net, pose_stats, warped, depths, pb["color"],
+                batch["K"], batch["inv_K"], res_noise)
+            loss = loss + res_loss
+            logs["res_pose_loss"] = res_loss
+            logs["loss"] = loss
         if cfg.supervise_pose:
             r_loss, t_loss = pose_supervision_loss(poses, batch["rel_poses"],
                                                    cfg.frame_ids)

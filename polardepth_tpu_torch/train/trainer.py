@@ -52,6 +52,9 @@ def build_model(cfg: Config) -> PolarDepthNet:
         # the fused stack exists only when both modality encoders do
         fused_encoders=cfg.fused_encoders and both,
         in_ch=12 if cfg.enable_12channels else 3,
+        use_attention=cfg.use_attention,
+        attention_pe_in_stream=cfg.attention_pe_in_stream,
+        attention_gate=cfg.attention_gate,
     )
 
 

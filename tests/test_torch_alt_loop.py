@@ -192,8 +192,8 @@ def test_cli_trains_the_multiframe_runs(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--train_student", "--res_pose"], ["--train_dpt"],
-    ["--depth_supervision_only", "false", "--use_attention"],
+    ["--train_student", "--train_dpt"], ["--train_dpt"],
+    ["--depth_supervision_only", "false", "--train_dpt"],
     ["--train_student", "--decode_backend", "native"]])
 def test_cli_still_refuses_the_unported_flags(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -266,7 +266,8 @@ def test_student_on_the_card_matches_the_cpu(tmp_path):
     assert build.launch_counts == {"polar_preprocess": 1,
                                    "band_warp_fwd": 22,
                                    "band_warp_fwd_lanes": 6,
-                                   "band_warp_bwd": 16}
+                                   "band_warp_bwd": 16,
+                                   "band_warp_img_grad": 0}
     from polardepth_tpu_torch.train import checkpoint
     path = checkpoint.save(str(tmp_path), alt.state, cfg, extra=alt._extra())
     fresh = loop.make_alt_trainer(cfg, spe, device="cuda",

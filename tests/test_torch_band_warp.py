@@ -5,10 +5,19 @@ interpret mode, as tests/test_band_warp.py runs them.
 
 Limits: the forward within 1e-6 absolute (images in [0, 1]); gradients with
 respect to the grid within 1e-5 of max|g| (the TPU kernel sums its band
-products in another order).  The cases are those of tests/test_band_warp.py
+products in another order).  The gradient with respect to the image (K4's
+function, which the JAX band warp does not give) against torch's autograd
+of K2's plain version and against the vjp of the JAX package's exact
+"flat4" warp: each pixel within 2 (n - 1) 2^-24 times the sum of the
+magnitudes of its n contributions, the most two float32 sums of the same
+products can differ by (2 (n + 1) 2^-24 against autograd, which forms each
+product in another order).  The cases are those of tests/test_band_warp.py
 (rotated grid, integer identity grid, out-of-band shear, border column) and
 the integer-coordinate gradient conventions of K3.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +35,8 @@ from polardepth_tpu_torch.ops.clip import clip  # noqa: E402
 
 FWD_ATOL = 1e-6
 GRAD_RTOL = 1e-5
+IMG_GRAD_U = 2.0 ** -24
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def _identity_grid(b, h, w):
@@ -221,20 +232,81 @@ def test_wrappers_check_their_inputs_on_the_cpu():
         tband.band_warp_bwd(img, ix, ix, torch.zeros(1, 4, 4, 1))
 
 
-def test_band_warp_refuses_an_image_that_requires_a_gradient():
-    """The kernels give the image no gradient, so band_warp refuses an image
-    that needs one rather than drop it (ROADMAP Queue 2 item c)."""
+def _img_grad_limit(img, ix, iy, g, reassociated=False):
+    """chip_smoke.py's per-pixel limit, 2 (n - 1) u times the sum of the
+    magnitudes of a pixel's n contributions (u = 2^-24): the most two
+    float32 sums of the same terms taken in two orders can differ by.
+    With reassociated, the terms too are formed in another order
+    (autograd's g (1-fy) (1-fx) against (1-fx) (1-fy) g), which moves
+    each by up to 4 u of itself: 2 (n + 1) u."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    limit = chip_smoke.img_grad_limit(img, ix, iy, g)[0]
+    if reassociated:
+        limit = limit + 4 * IMG_GRAD_U * tband.band_warp_img_grad_plain(
+            img, ix, iy, g.abs())
+    return limit
+
+
+@pytest.mark.parametrize("kind", ["rotated", "identity", "shear", "border",
+                                  "parallax"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_band_warp_image_gradient_is_the_plain_forwards_autograd(kind, c):
+    """band_warp gives the image K4's function: on the CPU the plain
+    scatter, equal to torch's autograd of K2's plain version on the same
+    clamped coordinates within each pixel's summation limit; the grid gets
+    K3's gradient beside it."""
     rng = np.random.default_rng(4)
-    img = torch.from_numpy(rng.uniform(0, 1, (1, 16, 24, 3)).astype(
+    b, h, w = 2, 32, 48
+    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, c)).astype(
         np.float32)).requires_grad_(True)
-    grid = torch.from_numpy(_grid("parallax", 1, 16, 24, rng)).requires_grad_(
-        True)
-    with pytest.raises(RuntimeError, match="image requires a gradient"):
-        tband.band_warp(img, grid, k=8)
-    with pytest.raises(RuntimeError, match="Queue 2 item c"):
-        twarp.grid_sample(img, grid, impl="pallas_fast")
-    with torch.no_grad():          # no gradient is asked for: nothing lost
-        assert tband.band_warp(img, grid, k=8).shape == (1, 16, 24, 3)
+    grid = torch.from_numpy(_grid(kind, b, h, w, rng)).requires_grad_(True)
+    cot = torch.from_numpy(rng.normal(size=(b, h, w, c)).astype(np.float32))
+    (tband.band_warp(img, grid, k=8) * cot).sum().backward()
+    geo = tband.band_geometry(h, w, c, h, k=8)
+    ix, iy, _ = tband.prep(img.shape, grid.detach(), geo["k"], geo["step"],
+                           True, geo["wp"])
+    ref = img.detach().clone().requires_grad_(True)
+    (tband.band_warp_fwd_plain(ref, ix, iy) * cot).sum().backward()
+    assert float(ref.grad.abs().max()) > 0
+    diff = (img.grad - ref.grad).abs()
+    assert bool((diff <= _img_grad_limit(img.detach(), ix, iy, cot,
+                                         reassociated=True)).all())
+    _, dg = _torch_warp(lambda i, g: tband.band_warp(i, g, k=8),
+                        img.detach().numpy(), grid.detach().numpy(),
+                        cot.numpy())
+    np.testing.assert_array_equal(grid.grad.numpy(), dg)
+
+
+@pytest.mark.parametrize("kind", ["rotated", "border", "parallax"])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_band_warp_image_gradient_matches_jax_flat4(kind, align_corners):
+    """Where the band does not clamp (k = H), the image gradient equals the
+    vjp of the JAX package's exact "flat4" warp within each pixel's
+    summation limit: the JAX band warp's custom VJP gives the image none."""
+    rng = np.random.default_rng(6)
+    b, h, w, c = 2, 16, 24, 3
+    img = rng.uniform(0, 1, (b, h, w, c)).astype(np.float32)
+    grid = _grid(kind, b, h, w, rng)
+    cot = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda i: jwarp.grid_sample(
+        i, jnp.asarray(grid), padding_mode="border",
+        align_corners=align_corners, impl="flat4"), jnp.asarray(img))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    t_img = torch.from_numpy(img).requires_grad_(True)
+    t_grid = torch.from_numpy(grid)
+    (tband.band_warp(t_img, t_grid, k=h, align_corners=align_corners)
+     * torch.from_numpy(cot)).sum().backward()
+    geo = tband.band_geometry(h, w, c, h, k=h)
+    ix, iy, _ = tband.prep(img.shape, t_grid, geo["k"], geo["step"],
+                           align_corners, geo["wp"])
+    assert np.abs(want).max() > 0
+    limit = _img_grad_limit(torch.from_numpy(img), ix, iy,
+                            torch.from_numpy(cot)).numpy()
+    assert (np.abs(t_img.grad.numpy() - want) <= limit).all()
 
 
 def test_band_warp_on_a_data_image_passes_the_grid_gradient():

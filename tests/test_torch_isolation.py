@@ -85,7 +85,8 @@ def test_chip_smoke_serve_and_result_phases_on_cpu():
     cfg = PUBLISHED.replace(height=64, width=96)
     s = chip_smoke.serve("cpu", cfg, batch=1, requests=2, seed=0)
     assert s["launches"] == {"polar_preprocess": 0, "band_warp_fwd": 0,
-                             "band_warp_fwd_lanes": 0, "band_warp_bwd": 0}
+                             "band_warp_fwd_lanes": 0, "band_warp_bwd": 0,
+                             "band_warp_img_grad": 0}
     assert s["err_plain"] == 0.0 and s["err_cpu"] == 0.0
     assert cfg.min_depth <= s["depth_range"][0] <= s["depth_range"][1] \
         <= cfg.max_depth

@@ -7,8 +7,14 @@ preprocess kernel are the JAX package's own for the TPU kernel
 (tests/test_pallas_preprocess.py): 2e-6 on XOLP with phi compared modulo pi,
 5e-5 on the priors.  The band-warp kernels K2 and K3: 1e-6 absolute on the
 forward (images in [0, 1]), 1e-5 of each one's max abs on dix and diy.
-Each test also holds the launch counts: one per kernel call.
+K4 (the image gradient): each pixel within 2 (n - 1) 2^-24 times the sum
+of the magnitudes of its n contributions (the same products, summed by
+atomics in another order).  Each test also holds the launch counts: one
+per kernel call.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -202,13 +208,65 @@ def test_band_warp_kernels_at_other_shapes(card, c, b, h, w, oh):
         WARP_GRAD_RTOL * float(diy_p.abs().max())
 
 
+def _img_grad_limit(img, ix, iy, g):
+    """chip_smoke.py's per-pixel limit of K4 against its plain version."""
+    root = str(Path(__file__).resolve().parent.parent)
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke.img_grad_limit(img, ix, iy, g)[0]
+
+
 @pytest.mark.gpu
-def test_band_warp_refuses_an_image_gradient_on_the_card(card):
-    img, grid, _ = _warp_inputs(card, 3, "parallax")
+@pytest.mark.parametrize("c", [1, 3, 5])
+@pytest.mark.parametrize("kind", ["parallax", "shear", "edges"])
+def test_band_warp_img_grad_kernel_matches_plain_version(card, c, kind):
+    """K4 (the image gradient) against its plain version, one launch per
+    call, through its compiled channel count (3) and its run-time one (1,
+    5); the buffer is zeroed by the launcher, so a second call gives the
+    same."""
+    img, grid, g = _warp_inputs(card, c, kind)
+    geo = band_warp.band_geometry(64, 96, c, 64)
+    ix, iy, _ = band_warp.prep(img.shape, grid, geo["k"], geo["step"], True,
+                               geo["wp"])
     before = dict(build.launch_counts)
-    with pytest.raises(RuntimeError, match="image requires a gradient"):
-        band_warp.band_warp(img.requires_grad_(True), grid)
-    assert build.launch_counts == before
+    grad = band_warp.band_warp_img_grad(img, ix, iy, g)
+    again = band_warp.band_warp_img_grad(img, ix, iy, g)
+    torch.cuda.synchronize()
+    assert build.launch_counts["band_warp_img_grad"] == \
+        before["band_warp_img_grad"] + 2
+    plain = band_warp.band_warp_img_grad_plain(img, ix, iy, g)
+    limit = _img_grad_limit(img, ix, iy, g)
+    assert float(plain.abs().max()) > 0
+    for got in (grad, again):
+        assert bool(((got - plain).abs() <= limit).all())
+
+
+@pytest.mark.gpu
+def test_band_warp_autograd_launches_k4_for_the_image(card):
+    """An image that needs a gradient gets it through K4 (and the grid
+    through K3), equal to the CPU's plain versions."""
+    img, grid, g = _warp_inputs(card, 3, "parallax")
+    img.requires_grad_(True)
+    grid.requires_grad_(True)
+    before = dict(build.launch_counts)
+    (band_warp.band_warp(img, grid) * g).sum().backward()
+    torch.cuda.synchronize()
+    for name in ("band_warp_fwd", "band_warp_bwd", "band_warp_img_grad"):
+        assert build.launch_counts[name] == before[name] + 1
+    ref_img = img.detach().cpu().requires_grad_(True)
+    ref_grid = grid.detach().cpu().requires_grad_(True)
+    (band_warp.band_warp(ref_img, ref_grid) * g.cpu()).sum().backward()
+    geo = band_warp.band_geometry(64, 96, 3, 64)
+    ix, iy, _ = band_warp.prep(img.shape, grid.detach(), geo["k"],
+                               geo["step"], True, geo["wp"])
+    limit = _img_grad_limit(img.detach(), ix, iy, g).cpu()
+    assert bool(((img.grad.cpu() - ref_img.grad).abs() <= limit).all())
+    gmax = float(ref_grid.grad.abs().max())
+    assert float((grid.grad.cpu() - ref_grid.grad).abs().max()) <= \
+        1e-4 * gmax
 
 
 @pytest.mark.gpu

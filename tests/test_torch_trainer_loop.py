@@ -221,8 +221,9 @@ def test_cli_train_then_evaluate(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--decode_backend", "native"], ["--train_dpt"], ["--res_pose"],
-    ["--use_attention"], ["--depth_supervision_only", "false", "--res_pose"]])
+    ["--decode_backend", "native"], ["--train_dpt"],
+    ["--train_dpt", "--res_pose"], ["--train_dpt", "--use_attention"],
+    ["--depth_supervision_only", "false", "--decode_backend", "native"]])
 def test_cli_refuses_unported_paths(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["train", "--synthetic", "2", "--device", "cpu",

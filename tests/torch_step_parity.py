@@ -53,18 +53,19 @@ def _same_preprocess(monkeypatch):
     monkeypatch.setattr(network, "fused_polar_preprocess", _jax_preprocess)
 
 
-def _redraw_bn(variables, seed):
+def _redraw_bn(variables, seed, stats=False):
     """BatchNorm scales and biases drawn with numpy, so that no layer starts
-    at the symmetric 1/0 init."""
+    at the symmetric 1/0 init; with stats, the running means and variances
+    too."""
     rng = np.random.default_rng(seed)
 
     def redraw(path, a):
         a = np.asarray(a, np.float32)
         names = [getattr(p, "key", "") for p in path]
         if any(n.startswith("BatchNorm") for n in names):
-            if names[-1] == "scale":
+            if names[-1] == "scale" or (stats and names[-1] == "var"):
                 return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-            if names[-1] == "bias":
+            if names[-1] == "bias" or (stats and names[-1] == "mean"):
                 return rng.normal(0.0, 0.1, a.shape).astype(np.float32)
         return a
 
@@ -125,52 +126,84 @@ def _gradient_limits(ref_g, g, rerolls):
     """Per tensor: GRAD_RTOL of the JAX gradient's max abs, plus NOISE_MULT
     times the port's own float32 spread there: the largest difference
     between g and the gradients of the port's steps from the weights
-    scaled by 1 +- 2^-20 (``REROLL_SCALES``)."""
+    scaled by 1 +- 2^-20 (``REROLL_SCALES``), or jiggled (``_run_port``)."""
     return {k: GRAD_RTOL * np.abs(r).max() + NOISE_MULT * max(
         np.abs(g[k] - again[k]).max() for again in rerolls)
         for k, r in ref_g.items()}
 
 
-def _run_port(tmodel_fn, tstep_fn, tcfg, weights, batch, draws, scale=None):
+def _run_port(tmodel_fn, tstep_fn, tcfg, weights, batch, draws, scale=None,
+              jiggle=None):
+    """One port step from weights; scale multiplies every weight, jiggle (a
+    seed) each weight element by 1 + or - 2^-20 at random."""
     tmodel = tmodel_fn(tcfg)
     tmodel.load_state_dict(weights)
-    if scale is not None:
-        with torch.no_grad():
-            for prm in tmodel.parameters():
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(jiggle or 0)
+        for prm in tmodel.parameters():
+            if scale is not None:
                 prm.mul_(scale)
+            if jiggle is not None:
+                sign = torch.randint(0, 2, prm.shape, generator=gen) * 2 - 1
+                prm.mul_(1.0 + sign * 2.0 ** -20)
     tstate = state.create_train_state(tmodel, tcfg)
     logs = tstep_fn(tmodel, tcfg)(tstate, batch, **draws)
     assert tstate.step == 1
     return logs, tmodel
 
 
-def _run_pair(jcfg, jmodel, jstep_fn, example, tmodel_fn, tstep_fn, tcfg,
-              batch, draws_of):
-    """One JAX step and one port step from the same weights, compared."""
+def _jax_reference(jcfg, jmodel, jstep_fn, example, batch, draws_of,
+                   redraw_stats=False):
+    """One JAX step from its init with BatchNorm redrawn (its running
+    statistics too with redraw_stats) -> (the port's weights of the JAX
+    state before the step, the port's draws of the step, the reference:
+    the step's logs and its gradients, parameters and statistics after it
+    as flat dicts)."""
     rng = jax.random.PRNGKey(0)
     jstate = create_train_state(jmodel, {"params": rng, "dropout": rng},
                                 example, jcfg.learning_rate)
     v = _redraw_bn({"params": jstate.params,
-                    "batch_stats": jstate.batch_stats}, 1)
+                    "batch_stats": jstate.batch_stats}, 1, redraw_stats)
     jstate = jstate.replace(params=v["params"], batch_stats=v["batch_stats"])
     weights = state_dict_from_jax(v["params"], v["batch_stats"],
                                   fused_encoders=True)
     new_j, jlogs = jax.jit(jstep_fn)(
         jstate, {k: jnp.asarray(x) for k, x in batch.items()}, rng)
     assert int(new_j.step) == 1
-    draws = draws_of(jax.random.fold_in(rng, 0))
+    ref = {"logs": jlogs,
+           "g": _flat(jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1,
+                                             new_j.opt_state[0].mu)),
+           "p": _flat(jax.device_get(new_j.params)),
+           "s": _flat(jax.device_get(new_j.batch_stats))}
+    return weights, draws_of(jax.random.fold_in(rng, 0)), ref
+
+
+def _run_pair(jcfg, jmodel, jstep_fn, example, tmodel_fn, tstep_fn, tcfg,
+              batch, draws_of):
+    """One JAX step and one port step from the same weights, compared."""
+    weights, draws, ref = _jax_reference(jcfg, jmodel, jstep_fn, example,
+                                         batch, draws_of)
+    return _compare_port(ref, tmodel_fn, tstep_fn, tcfg, weights, batch,
+                         draws, jcfg.learning_rate)
+
+
+def _compare_port(ref, tmodel_fn, tstep_fn, tcfg, weights, batch, draws,
+                  lr, jiggles=()):
+    """The port's step from weights with draws against ref (as
+    ``_jax_reference`` gives it) at the module's limits; returns the
+    port's logs.  The float32 spread comes from the steps from the weights
+    scaled by ``REROLL_SCALES`` and, for each seed in jiggles, from the
+    weights jiggled element by element (``_run_port``)."""
     logs, tmodel = _run_port(tmodel_fn, tstep_fn, tcfg, weights, batch,
                              draws)
     rerolls = [_torch_trees(_run_port(tmodel_fn, tstep_fn, tcfg, weights,
-                                      batch, draws, scale=sc)[1])[0]
-               for sc in REROLL_SCALES]
+                                      batch, draws, **kw)[1])[0]
+               for kw in [{"scale": sc} for sc in REROLL_SCALES]
+               + [{"jiggle": seed} for seed in jiggles]]
 
-    _assert_logs_close(logs, jlogs)
+    _assert_logs_close(logs, ref["logs"])
     g, p, s = _torch_trees(tmodel)
-    ref_g = _flat(jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1,
-                                         new_j.opt_state[0].mu))
-    ref_p = _flat(jax.device_get(new_j.params))
-    ref_s = _flat(jax.device_get(new_j.batch_stats))
+    ref_g, ref_p, ref_s = ref["g"], ref["p"], ref["s"]
     assert g.keys() == ref_g.keys() == p.keys() == ref_p.keys()
     assert s.keys() == ref_s.keys()
     limits = _gradient_limits(ref_g, g, rerolls)
@@ -182,8 +215,6 @@ def _run_pair(jcfg, jmodel, jstep_fn, example, tmodel_fn, tstep_fn, tcfg,
     # Adam's first step moves each element by lr * u(g), u(g) = g/(|g|+eps);
     # the port's parameters lie within PARAM_ATOL of the JAX package's plus
     # the spread of lr * u over the gradient limit around the JAX gradient
-    lr = jcfg.learning_rate
-
     def u(x):
         return x / (np.abs(x) + 1e-8)
 
