@@ -14,8 +14,9 @@ weights, point clouds, the analysis report and the AR GIF), and holds every
 CUDA kernel of those paths against its plain torch version.  One timed line
 per phase:
 
-  1. device: the card's name and power limit; TF32 off for convolutions and
-     matrix products, so float32 means float32.
+  1. device: the card's name and power limit; torch's global TF32 flags,
+     left as torch sets them (cuDNN's on): every entry point of the port
+     computes float32 itself (utils/precision.py).
   2. build: nvcc builds the kernels from csrc/ (ops/build.py).
   3. kernel: the polar-preprocess kernel against its plain version at the
      serving shape, on physical, wild, zero-intensity and odd-sized inputs;
@@ -27,10 +28,11 @@ per phase:
   5. warp: the band-warp kernels K2 (forward), K3 (grid gradient) and K4
      (image gradient) against their plain versions at the training shape
      (12, 320, 480, 3) on a parallax grid (project_3d of a random depth and
-     pose) and a sheared grid whose rows leave the 32-row band; the share
-     of pixels the band clamps; kernel, plain and library times (the
-     forward, grid-only and input-only backward of grid_sample); the
-     bounds.
+     pose), a sheared grid whose rows leave the 32-row band and a smooth
+     grid (project_3d of phase 7's smooth depth); the share of pixels the
+     band clamps and of K4's taps that spill past its shared-memory
+     window (counted on the card by K4's counting build); kernel, plain and library times (the forward, grid-only and
+     input-only backward of grid_sample); the bounds.
      Then K2 at the plane sweep's shape (the teacher's cost volume: 64
      feature channels at 80x120, 16 depth bins stacked on rows, k = 8)
      against its plain version, beside F.grid_sample and its bound.
@@ -84,10 +86,17 @@ per phase:
      1``.
  12. res_pose: the self-supervised step of phase 6 with the residual-pose
      pass; K1 once, K2 and K3 ten times and K4 (the image gradient) twice
-     per step; the kernel step against the plain-warp step; and the
+     per step; K4's device time in a profiled step; the kernel step against
+     the plain-warp step; and the
      command line's ``train --depth_supervision_only false --res_pose
      --synthetic 12 --num_epochs 1``.
- 13. result: the kernels' JSON line, then the final JSON line.
+ 13. precision: the published supervised step in turns as its entry point
+     runs it (float32) and its body under TF32-on flags (measurement
+     only), and ``cli.main(["evaluate", ...])`` under TF32-on flags
+     against the same run inside float32(): equal tables, the flags left
+     on.  Last, so that no earlier phase finds the card in another state
+     than without it.
+ 14. result: the kernels' JSON line, then the final JSON line.
 
 Kernel times (phases 3 and 5, and the kernels line) are taken behind a spin
 on the card (``device_ms``), so that a wrapper's host time per call does not
@@ -122,7 +131,7 @@ from polardepth_tpu_torch.config import PUBLISHED, Config
 from polardepth_tpu_torch.data.pipeline import BatchIterator, device_prefetch
 from polardepth_tpu_torch.data.synthetic import SyntheticHammer
 from polardepth_tpu_torch.eval.export import (
-    load_artifact, make_export, preprocess_nodes, save_artifact)
+    load_module, make_export, preprocess_nodes, save_artifact)
 from polardepth_tpu_torch.eval.pointcloud import read_ply
 from polardepth_tpu_torch.models import cost_volume
 from polardepth_tpu_torch.models.convert import (
@@ -142,6 +151,7 @@ from polardepth_tpu_torch.train.losses import preprocess_batch
 from polardepth_tpu_torch.train.trainer import (
     Predictor, Trainer, build_model, make_train_step)
 from polardepth_tpu_torch.utils import profiling
+from polardepth_tpu_torch.utils.precision import float32
 
 # H100 SXM peaks (NVIDIA data sheet): memory rate and float32 rate outside
 # the tensor cores, at the full 700 W power limit.
@@ -412,7 +422,7 @@ def plain_depth(predictor: Predictor, batch: dict) -> np.ndarray:
     cfg = predictor.cfg
     db = {k: torch.as_tensor(batch[k]).to(predictor.device)
           for k in ("color", "pol")}
-    with torch.inference_mode():
+    with torch.inference_mode(), float32():
         pb = preprocess_batch(db, cfg)
         xolp, priors = polar_preprocess_plain(pb["pol"])
         out = predictor.model(pb["color"], xolp=xolp, priors=priors)
@@ -498,6 +508,17 @@ def parallax_grid(rng, batch: int, h: int, w: int, device) -> torch.Tensor:
     return project_3d(points, K, random_pose(rng, batch, device), h, w)
 
 
+def smooth_grid(rng, batch: int, h: int, w: int, device) -> torch.Tensor:
+    """project_3d of a smooth depth in [0.3, 1.5] m (the seeded smooth
+    texture of phase 7's training batch) through a small pose: the kind of
+    grid the res_pose step re-warps through, a predicted depth."""
+    depth = 0.3 + 1.2 * smooth_uint8(rng, (batch, h, w, 1), device).float() \
+        / 255.0
+    K = torch.from_numpy(intrinsics(batch, h, w)).to(device)
+    points = backproject_depth(depth, torch.linalg.inv(K))
+    return project_3d(points, K, random_pose(rng, batch, device), h, w)
+
+
 def sheared_grid(batch: int, h: int, w: int, device) -> torch.Tensor:
     """An identity grid whose y grows with x: rows leave the 32-row band."""
     ys, xs = torch.meshgrid(torch.linspace(-1, 1, h, device=device),
@@ -560,9 +581,19 @@ def img_grad_errors(img, ix, iy, g) -> dict:
             "img_grad_finite": bool(torch.isfinite(k_grad).all())}
 
 
+def img_grad_live_taps(ix, iy) -> int:
+    """The taps of nonzero bilinear weight of (ix, iy), as K4 forms the
+    weights: what its counting build must count as taps."""
+    fx, fy = ix - ix.floor(), iy - iy.floor()
+    return int(sum(int((w != 0).sum()) for w in (
+        (1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)))
+
+
 def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
                name_power: str, iters: int = 100) -> dict:
-    """K2, K3 and K4 against their plain versions on two grids; times."""
+    """K2, K3 and K4 against their plain versions on three grids; times;
+    the share of K4's taps that spill past its window, from its counting
+    build (held to its limit too)."""
     rng = np.random.default_rng(seed + 5)
     h, w, c = cfg.height, cfg.width, 3
     img = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, c)).astype(
@@ -572,7 +603,8 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
     geo = band_warp.band_geometry(h, w, c, h)
     out = {}
     grids = {"parallax": parallax_grid(rng, batch, h, w, device),
-             "sheared": sheared_grid(batch, h, w, device)}
+             "sheared": sheared_grid(batch, h, w, device),
+             "smooth": smooth_grid(rng, batch, h, w, device)}
     for name, grid in grids.items():
         ix, iy, _ = band_warp.prep(img.shape, grid, geo["k"], geo["step"],
                                    True, geo["wp"])
@@ -611,6 +643,20 @@ def check_warp(device: torch.device, batch: int, cfg: Config, seed: int,
                 f"non-finite K4 output on the {name} grid")
         require(e["img_grad_over_limit"] <= 1.0,
                 f"K4 error on the {name} grid")
+        counted, n = band_warp.band_warp_img_grad_counted(img, ix, iy, g)
+        taps = img_grad_live_taps(ix, iy)
+        spill = n["spilled"] / max(n["taps"], 1)
+        print(f"  {name:8s} K4's counting build: {100 * spill:.3f}% of "
+              f"{n['taps']} taps of nonzero weight spill past the windows "
+              f"(counted on the card); the windows hold "
+              f"{n['window_floats'] / img.numel():.3f}x the image's floats")
+        require(n["taps"] == taps, f"K4's counting build counted "
+                f"{n['taps']} taps on the {name} grid, not {taps}")
+        diff = (counted - band_warp.band_warp_img_grad_plain(
+            img, ix, iy, g)).abs()
+        require(bool(torch.isfinite(counted).all()) and bool(
+            (diff <= img_grad_limit(img, ix, iy, g)[0]).all()),
+            f"K4's counting build outside its limit on the {name} grid")
         t = {}
         t["fwd_b2b"], t["fwd_host"] = time_ms(
             lambda: band_warp.band_warp_fwd(img, ix, iy), iters)
@@ -870,10 +916,10 @@ def train_selfsup(device, cfg: Config, batch_size: int, steps: int,
     require(launches == want, f"self-supervised launches {launches}, "
             f"expected {want}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    n_waits = None
+    n_waits = prof = None
     if device.type == "cuda":     # the step's host waits, for phase 9
-        n_waits = profiled_step(
-            lambda: step(st, batch, gen))["idle"]["n_waits"]
+        prof = profiled_step(lambda: step(st, batch, gen))
+        n_waits = prof["idle"]["n_waits"]
     check = plain_warp_step(cfg, weights, batch, device, seed)
     require(check["loss_rel_err"] <= STEP_LOSS_RTOL,
             f"kernel vs plain-warp step loss: {check['loss_rel_err']:.3e}")
@@ -886,7 +932,12 @@ def train_selfsup(device, cfg: Config, batch_size: int, steps: int,
                 k: v / n for k, v in launches.items()},
             "max_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
-            "n_waits": n_waits, **check}
+            "n_waits": n_waits, **check,
+            # K4's kernel time in the profiled step, and the step's device
+            # time (the launcher's zeroing is a memset beside it)
+            "k4_ms": None if prof is None else sum(
+                ms for k, ms, _ in prof["top"] if "band_warp_img_grad" in k),
+            "device_ms": None if prof is None else prof["device_ms"]}
 
 
 def train_supervised(device, cfg: Config, batch_size: int, steps: int,
@@ -1323,7 +1374,7 @@ def sweep_check(model: student.StudentModel, cfg: Config, batch: dict,
     ).to(device)
     K4, inv_K4 = student.quarter_intrinsics(batch["K"])
     frames = batch["color_frames"].float() / 255.0
-    with torch.no_grad():
+    with torch.no_grad(), float32():
         extractor = model.encoder._FeatureExtractor_0
         _, f1 = extractor(frames[:, 0].permute(0, 3, 1, 2))
         _, look = extractor(frames[:, 1].permute(0, 3, 1, 2))
@@ -1698,7 +1749,7 @@ def export_round_trip(cfg: Config, weights: dict, device, rng, tmp: str,
     with open(path + ".json") as f:
         out["meta"] = json.load(f)
     del program
-    loaded = load_artifact(path).module()
+    loaded = load_module(path)
     predictor = Predictor(cfg, weights, device=device)
 
     def run_program(batch):
@@ -1954,7 +2005,152 @@ def attention_phase(device, cfg: Config, requests: int, steps: int,
     return out
 
 
-# --- phase 13 ---------------------------------------------------------------
+# --- phase 13: precision ---------------------------------------------------
+
+# The published supervised step in turns, TF32_PAIRS pairs: as its entry
+# point runs it (float32), and its body (the step without the entry point's
+# float32()) under TF32-on flags set here, measurement only.  The command
+# line's evaluate under TF32-on flags against the same run inside float32():
+# the same float32 computation, so the table, and the disparities that
+# --save_pred_disps writes, within PRECISION_RTOL.  Its control, the fault
+# the check must see: the same evaluate with every module's forward under
+# TF32-on flags, inside the entry points, whose disparities must differ by
+# more than PRECISION_RTOL (its table, a mean over 12 scenes, moves less
+# and is printed).
+TF32_PAIRS = 5
+PRECISION_RTOL = 1e-5
+EVAL_ARGV = ("evaluate", "--synthetic", "12", "--save_pred_disps")
+
+
+def tf32_flags() -> tuple[bool, bool]:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def set_tf32_flags(cudnn: bool, matmul: bool) -> None:
+    """Through the flags the port's float32() reads, each written only
+    where it differs, as float32() writes them."""
+    if torch.backends.cudnn.allow_tf32 != cudnn:
+        torch.backends.cudnn.allow_tf32 = cudnn
+    if torch.backends.cuda.matmul.allow_tf32 != matmul:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """Both TF32 flags on for the block; the caller's back after it."""
+    saved = tf32_flags()
+    set_tf32_flags(True, True)
+    try:
+        yield
+    finally:
+        set_tf32_flags(*saved)
+
+
+@contextlib.contextmanager
+def tf32_in_every_module():
+    """Both TF32 flags on at every module's forward, the entry points'
+    float32() notwithstanding (a global forward pre-hook); the caller's
+    flags back after the block."""
+    saved = tf32_flags()
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, args: set_tf32_flags(True, True))
+    try:
+        yield
+    finally:
+        handle.remove()
+        set_tf32_flags(*saved)
+
+
+def tf32_turns(device, cfg: Config, batch_size: int, pairs: int,
+               seed: int) -> dict:
+    """ms of the published supervised step (synchronize to loss read) in
+    turns: the entry point's step (float32) and its body under TF32-on
+    flags, after a warm-up of each; the last loss of each."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed + 7)
+    model = build_model(cfg)
+    model.load_state_dict(seeded_state_dict(cfg, seed))
+    model.to(device)
+    st = state.create_train_state(model, cfg)
+    step = make_train_step(model, cfg)
+    body = step.__wrapped__       # the step without its entry point's float32
+    full = train_batch(rng, batch_size, cfg, device)
+    batch = {k: full[k] for k in ("color", "pol", "depth", "K")}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"float32": [], "tf32": [], "loss": {}}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out["loss"][name] = float(fn(st, batch, gen)["loss"])
+        return 1e3 * (time.perf_counter() - start)
+
+    for i in range(pairs + 1):           # the first pair warms up
+        ms = timed("float32", step)
+        with tf32_on():
+            ms_tf32 = timed("tf32", body)
+        if i:
+            out["float32"].append(ms)
+            out["tf32"].append(ms_tf32)
+    return out
+
+
+def cli_evaluate(argv) -> tuple[dict, np.ndarray]:
+    """``cli.main(["evaluate", ..., "--save_pred_disps"])`` in process ->
+    the table its evaluate command returned, and the disparities it
+    saved."""
+    tables = []
+    command = cli.COMMANDS["evaluate"]
+    cli.COMMANDS["evaluate"] = lambda a: tables.append(command(a)[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            rc = cli.main([*argv, "--eval_out_dir", tmp])
+        finally:
+            cli.COMMANDS["evaluate"] = command
+        require(rc == 0 and len(tables) == 1, f"cli.main {argv}: rc {rc}")
+        saved = [f for f in os.listdir(tmp) if f.endswith(".npy")]
+        require(len(saved) == 1, f"cli.main {argv} saved {saved}")
+        return tables[0], np.load(os.path.join(tmp, saved[0]))
+
+
+def _rel_diff(a: np.ndarray, b: np.ndarray) -> float:
+    require(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def precision_check(device) -> dict:
+    """The command line's evaluate (PUBLISHED, 12 synthetic scenes, random
+    weights from cfg.seed) under TF32-on global flags against the same run
+    inside float32(): the entry points compute float32 either way, and
+    leave the caller's flags as they were.  The control: the same run with
+    its modules under TF32, which the check must tell apart."""
+    argv = (*EVAL_ARGV, "--device", str(device))
+    with tf32_on():
+        on, on_disps = cli_evaluate(argv)
+        after = tf32_flags()
+    with float32():
+        off, off_disps = cli_evaluate(argv)
+    with tf32_in_every_module():
+        tf32, tf32_disps = cli_evaluate(argv)
+    out = {"table": _table_rel_diff(on, off),
+           "disps": _rel_diff(on_disps, off_disps),
+           "table_tf32": _table_rel_diff(tf32, off),
+           "disps_tf32": _rel_diff(tf32_disps, off_disps),
+           "flags_after": after, "abs_rel": on["all"]["abs_rel"],
+           "abs_rel_tf32": tf32["all"]["abs_rel"], "n": off_disps.size}
+    require(after == (True, True), f"cli.main left the TF32 flags {after}")
+    for k in ("table", "disps"):
+        require(out[k] <= PRECISION_RTOL, f"evaluate under TF32-on flags vs "
+                f"float32(): relative difference of the {k} {out[k]:.3e}")
+    require(out["disps_tf32"] > PRECISION_RTOL, f"evaluate with its modules "
+            f"under TF32 vs float32(): relative difference of the "
+            f"disparities {out['disps_tf32']:.3e}, within the check's "
+            f"limit, so the check cannot tell TF32 apart")
+    return out
+
+
+# --- phase 14 ---------------------------------------------------------------
 
 def result_line(device) -> dict:
     device = torch.device(device)
@@ -1988,10 +2184,11 @@ def main() -> int:
         print(name_power)
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        print("  TF32 off: torch.backends.cudnn.allow_tf32 = False, "
-              "torch.backends.cuda.matmul.allow_tf32 = False")
+        # torch's own flags stay: every entry point computes float32 itself
+        print(f"  torch's global flags, left as they are: torch.backends."
+              f"cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+              f"torch.backends.cuda.matmul.allow_tf32 = "
+              f"{torch.backends.cuda.matmul.allow_tf32}")
     with phase("2 build"):
         build.build_all()
         for name, info in build.build_info.items():
@@ -2228,6 +2425,9 @@ def main() -> int:
         print(f"  losses {['%.6f' % x for x in rp['losses']]}")
         print(f"  launches {rp['launches']} ({rp['launches_per_step']} per "
               f"step)")
+        print(f"  K4 in one profiled step: {rp['k4_ms']:.4f} ms of "
+              f"{rp['device_ms']:.2f} ms of device time (share "
+              f"{rp['k4_ms'] / rp['device_ms']:.5f})  [{name_power}]")
         print(f"  step with the plain warps: loss {rp['loss_plain']:.7f} vs "
               f"{rp['loss_kernel']:.7f} (rel err {rp['loss_rel_err']:.3e}, "
               f"limit {STEP_LOSS_RTOL}); gradients: worst "
@@ -2240,7 +2440,27 @@ def main() -> int:
                   f"losses per epoch {['%.6f' % x for x in r['losses']]}, "
                   f"last table's all row abs_rel {r['all']['abs_rel']:.5f}, "
                   f"launches {r['launches']}  [{name_power}]")
-    with phase("13 result"):
+    with phase("13 precision"):
+        tt = tf32_turns(device, cfg, cfg.batch_size, TF32_PAIRS, args.seed)
+        print(f"  {TF32_PAIRS} pairs in turns: the entry point's step "
+              f"(float32) {['%.2f' % x for x in tt['float32']]} ms (median "
+              f"{np.median(tt['float32']):.2f}), its body under TF32-on "
+              f"flags {['%.2f' % x for x in tt['tf32']]} ms (median "
+              f"{np.median(tt['tf32']):.2f}); last losses "
+              f"{tt['loss']['float32']:.6f} and {tt['loss']['tf32']:.6f}  "
+              f"[{name_power}]")
+        pc = precision_check(device)
+        print(f"  cli.main {list(EVAL_ARGV)} under TF32-on flags vs inside "
+              f"float32(): largest relative difference of the tables "
+              f"{pc['table']:.3e}, of the {pc['n']} disparities "
+              f"{pc['disps']:.3e} (limit {PRECISION_RTOL}); flags after the "
+              f"command {pc['flags_after']}; abs_rel {pc['abs_rel']:.5f}")
+        print(f"  control: the same command with its modules under TF32: "
+              f"largest relative difference of the disparities "
+              f"{pc['disps_tf32']:.3e} (must exceed {PRECISION_RTOL}), of "
+              f"the tables {pc['table_tf32']:.3e}; abs_rel "
+              f"{pc['abs_rel_tf32']:.5f}  [{name_power}]")
+    with phase("14 result"):
         par = wp["parallax"]
         warp_err = max(max(v["errors"]["out"], v["errors"]["dix"],
                            v["errors"]["diy"]) for v in wp.values())
@@ -2277,7 +2497,10 @@ def main() -> int:
             "plain_ms": par["times"]["img_plain"],
             "bound_ms": par["bounds"]["img"][0],
             "bound_by": par["bounds"]["img"][1],
-            "library_ms": par["times"]["img_library"]})
+            "library_ms": par["times"]["img_library"],
+            "grids": {name: {"ms": v["times"]["img"],
+                             "library_ms": v["times"]["img_library"]}
+                      for name, v in wp.items()}})
         kernels.append({
             "name": "band_warp_fwd_lanes", "route": "cuda",
             "source": "polardepth_tpu_torch/csrc/band_warp.cu",

@@ -21,10 +21,11 @@ Flag names are those of the JAX package's CLI (the reference's
 MonodepthOptions, options.py:13-380), for every field of the port's Config,
 so that train_supervised_GT.sh maps one to one.  --synthetic N substitutes N
 generated scenes for the HAMMER dataset; --device picks the device (the
-card by default).  A flag of a path the port does not have yet raises
-instead of being ignored.  As in the JAX package, --use_attention acts on
-the supervised net alone and --res_pose on the self-supervised step alone;
-other paths ignore them.
+card by default).  Every command computes in float32, TF32 off, whatever
+torch's global flags say (utils/precision.py).  A flag of a path the port
+does not have yet raises instead of being ignored.  As in the JAX package,
+--use_attention acts on the supervised net alone and --res_pose on the
+self-supervised step alone; other paths ignore them.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import sys
 import numpy as np
 
 from polardepth_tpu_torch.config import Config
+from polardepth_tpu_torch.utils.precision import float32
 
 SPLITS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "splits")
@@ -561,7 +563,8 @@ def main(argv=None) -> int:
         print(__doc__)
         print("commands:", ", ".join(COMMANDS))
         return 1
-    COMMANDS[argv[0]](argv[1:])
+    with float32():
+        COMMANDS[argv[0]](argv[1:])
     return 0
 
 

@@ -53,23 +53,63 @@
 // K4, the image gradient, is the transpose of K2: each output pixel adds
 // its cotangent times the four bilinear weights into the same four clamped
 // taps that K2 reads, d img[y0, x0] += (1-fx)(1-fy) g and so on.  Several
-// output pixels hit one source pixel, so the adds are atomic (RED, resolved
-// in L2) into a buffer that the launcher zeroes first on the same stream.
-// Its bound is bytes: it reads g, ix and iy once and writes the zeroed and
-// the accumulated gradient.  What limits it is the L2's rate of atomic
-// operations: 4C scalar atomics per pixel (12 at C = 3; 22 M at the
-// training shape) took 0.29 ms on the H100, 12x the byte bound.  So a
-// pixel's two taps in a row, 2C contiguous floats, go in with sm_90's
-// 16- and 8-byte vector atomics where their alignment allows (2 to 4
-// operations for a row at C = 3), and an all-zero vector, from a zero
-// weight, is not sent.  One thread per output pixel, C compiled for 1 and
-// 3.
+// output pixels hit one source pixel, so the sums are formed with atomics,
+// into a buffer that the launcher zeroes first on the same stream.  Its
+// bound is bytes: it reads g, ix and iy once and writes the gradient once.
+//
+// What bounded the first design: the L2's rate of atomic operations, not
+// bytes.  One thread per output pixel sent each pixel's four taps straight
+// to device memory: 4C scalar atomics (22 M at the training shape,
+// (12, 320, 480, 3)) took 0.29 ms on the H100, then 2 to 4 vector atomics
+// of sm_90 per tap row (7-15 M) 0.14 ms, 8x the byte bound: neighbouring
+// pixels hit the same or adjacent source pixels and their adds meet, and
+// queue, in L2.
+//
+// This design sums in shared memory first.  A block takes a tile of 8 x 32
+// output pixels, one pixel a thread and one warp an output row; the batch
+// is on the grid's y, so no pixel divides by the image size.  Each warp
+// reduces its pixels' clamped taps to their extent and the sums of their
+// (y0, x0); warp 0 reduces the warps' and opens a window of the source: at
+// most kWinCols = 64 columns and kWinFloats = 6144 floats (24 KB: 64 x 32
+// pixels at C = 3), the extent itself where it fits, else a part of it
+// centred on the mean tap (robust to a few far taps) and clipped into it.
+// A tap inside the window goes into it with a shared-memory atomicAdd;
+// after a barrier each warp adds window rows into the gradient, each row
+// segment (cols x C contiguous floats) as 16-byte red.global.add.v4.f32
+// from its first 16-byte boundary, 8-byte or 4-byte ones at its ends,
+// all-zero vectors not sent.  Blocks' windows overlap at their edges, so
+// the flush stays atomic.
+//
+// A tap outside the window spills: it goes straight to device memory, in
+// the same launch, with the first design's vector atomics (red_add).  Grids
+// whose taps spread further than the window (the random-depth parallax
+// grid, up to ~130 px) spill; so does every tap where C > 6144.  Before a
+// spill, the lanes of a warp that hit the same tap (a border column onto
+// which clamping sends a whole row) are found with __match_any_sync and
+// summed into the lowest lane by shuffles, in lane order: one atomic per
+// tap per warp instead of 32.  A zero product is never sent, on either
+// route, nor is a window cell left at 0 flushed: adding 0 to a sum that
+// started at +0 leaves it as it was, bit for bit.  C = 3 (the colour frames
+// res_pose re-warps) is compiled for its C; any other C reads it at run
+// time.  A second build of each (COUNT) also counts the taps, the spills
+// and the windows' floats, for the wrapper's counted launch; the
+// training path launches the first.
+//
+// What bounds it now (H100, (12, 320, 480, 3); PERF.md): the L2's atomics
+// no longer, but the SM's instructions and its shared-memory adds.  sm_90
+// has no shared-memory float add: atomicAdd there compiles to a load, an
+// add and a compare-and-swap in a loop (ATOMS.CAST.SPIN), 12 of them a
+// pixel at C = 3.  The block-wide reductions are done once, by warp 0, in
+// 32-bit integers (the launcher refuses H or W of 2^23 or more), and
+// __launch_bounds__ holds 32 registers, for 8 blocks an SM.
 //
 // Rounding: built with -fmad=false and written in the order of the plain
 // torch versions in ops/band_warp.py, so the two agree to the last bit or
 // within a few ulps (the channel sums of K3).  K4's products are the plain
-// version's to the bit, but its atomic sums run in the order the threads
-// reach them, which changes from run to run.
+// version's to the bit, but its sums (shared-memory atomics, a warp's
+// combined spills, the flush) run in another order, which changes from run
+// to run; for any order of a pixel's n products the sum lies within
+// 2 (n - 1) u of their magnitude sum of the plain version's.
 //
 // Plain C interface for ctypes (ops/build.py).  Each launch function checks
 // its arguments, launches on the given stream and returns cudaGetLastError().
@@ -258,70 +298,262 @@ __device__ __forceinline__ void red_add(float* p, const float (&lo)[HALF],
   }
 }
 
-// One source row's two taps of K4: the C values of tap x0 and the C of tap
-// x1.  Where x1 = x0 + 1 the two taps are one contiguous span of 2C floats;
-// where the column is clamped (x1 = x0, x0 = W-1) each goes in on its own.
-template <int C>
-__device__ __forceinline__ void red_row(float* row, int x0, int x1,
-                                        const float (&a)[C],
-                                        const float (&b)[C]) {
-  if (x1 == x0 + C) {
-    red_add<2 * C, C>(row + x0, a, b);
+// K4's tile of output pixels (one warp an output row) and its window of
+// the source in shared memory: at most kWinCols columns and kWinFloats
+// floats.
+constexpr int kTileX = 32;
+constexpr int kTileY = 8;
+constexpr int kImgThreads = kTileX * kTileY;
+constexpr int kWarps = kImgThreads / 32;
+constexpr int kWinCols = 64;
+constexpr int kWinFloats = 6144;
+constexpr unsigned kFull = 0xffffffffu;
+
+// A warp's sum of v over the lanes of its group grp (a __match_any_sync
+// mask), in lane order; every lane of the warp must call it.
+__device__ __forceinline__ float group_sum(float v, unsigned grp) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int l = 0; l < 32; ++l) {
+    const float t = __shfl_sync(kFull, v, l);
+    if ((grp >> l) & 1u) acc += t;
+  }
+  return acc;
+}
+
+// K4's spill route for one tap kind (x0 or x1, y0 or y1) of a warp: the
+// lanes whose tap (y, x) lies outside the window (spill) add w * g into it
+// in plane (H, W, C).  Lanes that share a tap are summed into its lowest
+// lane first, where any do.  gv holds the pixel's C cotangent values
+// (CT > 0); CT == 0 reads them from gp.  Warp-uniform: every lane calls it.
+template <int CT>
+__device__ __forceinline__ void spill_tap(
+    bool spill, int y, int x, float* plane, int W, float w,
+    const float (&gv)[CT > 0 ? CT : 1], const float* gp, int C) {
+  if (!__any_sync(kFull, spill)) return;
+  const int key = y * W + x;
+  float* p = plane + static_cast<long long>(key) * C;
+  const unsigned grp = __match_any_sync(kFull, spill ? key : -1);
+  const bool combine = __any_sync(kFull, spill && __popc(grp) > 1);
+  const bool lead = spill && (threadIdx.x % 32) == __ffs(grp) - 1;
+  if constexpr (CT > 0) {
+    float v[CT];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      v[c] = spill ? w * gv[c] : 0.0f;
+      if (combine) v[c] = group_sum(v[c], grp);
+    }
+    if (combine ? lead : spill) red_add<CT, CT>(p, v, v);
   } else {
-    red_add<C, C>(row + x0, a, a);
-    red_add<C, C>(row + x1, b, b);
+    for (int c = 0; c < C; ++c) {
+      float v = spill ? w * __ldg(gp + c) : 0.0f;
+      if (combine) v = group_sum(v, grp);
+      if ((combine ? lead : spill) && v != 0.0f) atomicAdd(p + c, v);
+    }
   }
 }
 
-// K4: one thread per output pixel, g's C channels times the bilinear
-// weights added into the four taps of grad (B, H, W, C), zeroed by the
-// launcher.  CT = 3 (the colour frames res_pose re-warps) goes through
-// red_row's vector atomics; CT == 0 reads C at run time and adds each value
-// with a scalar atomic.
-template <int CT>
-__global__ void __launch_bounds__(kThreads)
+// K4's window of the source in shared memory: its first row and column,
+// its rows and columns.
+struct Window {
+  int y0, x0, rows, cols;
+};
+
+// K4: a block per tile of kTileY x kTileX output pixels of one image (the
+// batch on the grid's y), ix, iy (B, OH, OW) and the cotangent g
+// (B, OH, OW, C) -> grad (B, H, W, C), zeroed by the launcher.  The taps
+// inside the block's window are summed in shared memory and flushed once;
+// the others spill to grad.  CT > 0 fixes C at compile time.  COUNT also
+// adds into counts (zeroed by the launcher): the taps of nonzero weight,
+// those of them that spilled, and the floats of the windows opened.
+template <int CT, bool COUNT>
+__global__ void __launch_bounds__(kImgThreads, 8)
     band_warp_img_grad_kernel(const float* __restrict__ ix,
                               const float* __restrict__ iy,
                               const float* __restrict__ g,
-                              float* __restrict__ grad, int H, int W,
-                              int C_rt, long long per_image, long long n) {
+                              float* __restrict__ grad, int B, int H, int W,
+                              int C_rt, int OH, int OW, int tiles_x,
+                              unsigned long long* __restrict__ counts) {
   const int C = CT > 0 ? CT : C_rt;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       p < n; p += stride) {
-    // taps() gives the row pointers into grad; it only reads the
-    // coordinates, never the plane
-    const Taps t = taps(grad + (p / per_image) * H * W * C, __ldg(ix + p),
-                        __ldg(iy + p), H, W, C);
-    float* r0 = const_cast<float*>(t.r0);
-    float* r1 = const_cast<float*>(t.r1);
-    const float w00 = (1.0f - t.fx) * (1.0f - t.fy);
-    const float w01 = t.fx * (1.0f - t.fy);
-    const float w10 = (1.0f - t.fx) * t.fy;
-    const float w11 = t.fx * t.fy;
-    const float* gp = g + p * C;
-    if constexpr (CT > 0) {
-      float a0[CT], b0[CT], a1[CT], b1[CT];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float gc = __ldg(gp + c);
-        a0[c] = w00 * gc;
-        b0[c] = w01 * gc;
-        a1[c] = w10 * gc;
-        b1[c] = w11 * gc;
-      }
-      red_row<CT>(r0, t.x0, t.x1, a0, b0);
-      red_row<CT>(r1, t.x0, t.x1, a1, b1);
-    } else {
-      for (int c = 0; c < C; ++c) {
-        const float gc = __ldg(gp + c);
-        atomicAdd(r0 + t.x0 + c, w00 * gc);
-        atomicAdd(r0 + t.x1 + c, w01 * gc);
-        atomicAdd(r1 + t.x0 + c, w10 * gc);
-        atomicAdd(r1 + t.x1 + c, w11 * gc);
+  __shared__ __align__(16) float win[kWinFloats];
+  __shared__ int parts[kWarps][7];
+  __shared__ Window window;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int ox = (blockIdx.x % tiles_x) * kTileX + lane;
+  const int oy = (blockIdx.x / tiles_x) * kTileY + warp;
+  const bool valid = ox < OW && oy < OH;
+  const int cells = kWinFloats / C;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long p = (static_cast<long long>(b) * OH + oy) * OW + ox;
+    float x = 0.0f;
+    float y = 0.0f;
+    if (valid) {
+      x = __ldg(ix + p);
+      y = __ldg(iy + p);
+    }
+    // the taps as taps() clamps them
+    const float x0f = floorf(x);
+    const float y0f = floorf(y);
+    const float fx = x - x0f;
+    const float fy = y - y0f;
+    const int x0 = min(max(static_cast<int>(x0f), 0), W - 1);
+    const int y0 = min(max(static_cast<int>(y0f), 0), H - 1);
+    const int x1 = min(x0 + 1, W - 1);
+    const int y1 = min(y0 + 1, H - 1);
+
+    // the block's extent and mean tap: each warp's, then warp 0 reduces
+    // the warps' and opens the window (sums of columns and rows fit an int:
+    // the launcher refuses H or W of 2^23 or more)
+    {
+      const int xmin = __reduce_min_sync(kFull, valid ? x0 : W);
+      const int xmax = __reduce_max_sync(kFull, valid ? x1 : -1);
+      const int ymin = __reduce_min_sync(kFull, valid ? y0 : H);
+      const int ymax = __reduce_max_sync(kFull, valid ? y1 : -1);
+      const unsigned xsum = __reduce_add_sync(kFull, valid ? x0 : 0);
+      const unsigned ysum = __reduce_add_sync(kFull, valid ? y0 : 0);
+      const int count = __popc(__ballot_sync(kFull, valid));
+      if (lane == 0) {
+        int* q = parts[warp];
+        q[0] = xmin;
+        q[1] = xmax;
+        q[2] = ymin;
+        q[3] = ymax;
+        q[4] = static_cast<int>(xsum);
+        q[5] = static_cast<int>(ysum);
+        q[6] = count;
       }
     }
+    __syncthreads();
+    if (warp == 0) {
+      const bool mine = lane < kWarps;
+      const int* q = parts[mine ? lane : 0];
+      const int xmin = __reduce_min_sync(kFull, mine ? q[0] : W);
+      const int xmax = __reduce_max_sync(kFull, mine ? q[1] : -1);
+      const int ymin = __reduce_min_sync(kFull, mine ? q[2] : H);
+      const int ymax = __reduce_max_sync(kFull, mine ? q[3] : -1);
+      const int xsum =
+          static_cast<int>(__reduce_add_sync(kFull, mine ? q[4] : 0));
+      const int ysum =
+          static_cast<int>(__reduce_add_sync(kFull, mine ? q[5] : 0));
+      const int count =
+          static_cast<int>(__reduce_add_sync(kFull, mine ? q[6] : 0));
+      // the extent where it fits, else centred on the mean tap and
+      // clipped into the extent; 0 x 0 where no cell fits
+      if (lane == 0) {
+        Window w;
+        w.cols = min(min(xmax - xmin + 1, kWinCols), cells);
+        w.rows = w.cols > 0 ? min(ymax - ymin + 1, cells / w.cols) : 0;
+        w.x0 = min(max(xsum / count - (w.cols - 1) / 2, xmin),
+                   xmax - w.cols + 1);
+        w.y0 = min(max(ysum / count - (w.rows - 1) / 2, ymin),
+                   ymax - w.rows + 1);
+        window = w;
+      }
+    }
+    __syncthreads();
+    const int cols = window.cols;
+    const int rows = window.rows;
+    const int wx0 = window.x0;
+    const int wy0 = window.y0;
+    const int len = cols * C;  // floats per window row
+    if constexpr (COUNT) {
+      if (threadIdx.x == 0)
+        atomicAdd(counts + 2, static_cast<unsigned long long>(rows) * len);
+    }
+    for (int i = threadIdx.x; i < (rows * len + 3) / 4; i += kImgThreads)
+      reinterpret_cast<float4*>(win)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+
+    // accumulate: the window's taps in shared memory, the rest spill
+    const float* gp = g + p * C;
+    float gv[CT > 0 ? CT : 1];
+    if constexpr (CT > 0) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c) gv[c] = valid ? __ldg(gp + c) : 0.0f;
+    }
+    const auto g_of = [&](int c) {
+      if constexpr (CT > 0) return gv[c];
+      else return __ldg(gp + c);
+    };
+    float* plane = grad + static_cast<long long>(b) * H * W * C;
+    const int ty[2] = {y0, y1};
+    const int tx[2] = {x0, x1};
+    const int ry[2] = {y0 - wy0, y1 - wy0};
+    const int qx[2] = {x0 - wx0, x1 - wx0};
+    const unsigned urows = rows;
+    const unsigned ucols = cols;
+    const bool in_y[2] = {valid && static_cast<unsigned>(ry[0]) < urows,
+                          valid && static_cast<unsigned>(ry[1]) < urows};
+    const bool in_x[2] = {static_cast<unsigned>(qx[0]) < ucols,
+                          static_cast<unsigned>(qx[1]) < ucols};
+    const float wt[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
+                         (1.0f - fx) * fy, fx * fy};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = k / 2;  // the tap's row: y0, y1
+      const int j = k % 2;  // its column: x0, x1
+      const bool inside = in_y[i] && in_x[j];
+      if (inside) {
+        float* cell = win + ry[i] * len + qx[j] * C;
+        for (int c = 0; c < C; ++c) {
+          const float v = wt[k] * g_of(c);
+          if (v != 0.0f) atomicAdd(cell + c, v);
+        }
+      }
+      spill_tap<CT>(valid && !inside, ty[i], tx[j], plane, W, wt[k], gv, gp,
+                    C);
+      if constexpr (COUNT) {
+        const bool live = valid && wt[k] != 0.0f;
+        const unsigned n = __popc(__ballot_sync(kFull, live));
+        const unsigned spilled = __popc(__ballot_sync(kFull, live && !inside));
+        if (lane == 0 && n) {
+          atomicAdd(counts, static_cast<unsigned long long>(n));
+          atomicAdd(counts + 1, static_cast<unsigned long long>(spilled));
+        }
+      }
+    }
+    __syncthreads();
+
+    // flush: a warp a window row, its len floats into grad in 16-byte
+    // chunks counted from grad's 16-byte boundaries (grad is 16-byte
+    // aligned), the lanes over the chunks
+    const long long row0 =
+        ((static_cast<long long>(b) * H + wy0) * W + wx0) * C;
+    for (int r = warp; r < rows; r += kWarps) {
+      const long long start = row0 + static_cast<long long>(r) * W * C;
+      const long long a0 = start & ~3LL;
+      const int skip = static_cast<int>(start - a0);  // floats before start
+      const int n = (skip + len + 3) / 4;
+      const float* src = win + r * len - skip;  // src[i] goes to grad[a0 + i]
+      for (int k = lane; k < n; k += 32) {
+        const int lo = k == 0 ? skip : 0;
+        const int hi = k == n - 1 ? skip + len - 4 * k : 4;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = j >= lo && j < hi ? src[4 * k + j] : 0.0f;
+        float* out = grad + a0 + 4LL * k;
+        if (lo == 0 && hi == 4) {
+          if (v[0] != 0.0f || v[1] != 0.0f || v[2] != 0.0f || v[3] != 0.0f)
+            atomicAdd(reinterpret_cast<float4*>(out),
+                      make_float4(v[0], v[1], v[2], v[3]));
+          continue;
+        }
+#pragma unroll
+        for (int h = 0; h < 4; h += 2) {
+          if (lo <= h && h + 2 <= hi) {
+            if (v[h] != 0.0f || v[h + 1] != 0.0f)
+              atomicAdd(reinterpret_cast<float2*>(out + h),
+                        make_float2(v[h], v[h + 1]));
+          } else {
+            for (int j = h; j < h + 2; ++j)
+              if (j >= lo && j < hi && v[j] != 0.0f) atomicAdd(out + j, v[j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next image reuses win, parts and window
   }
 }
 
@@ -336,6 +568,20 @@ bool bad_shape(int H, int W, int C, long long per_image, long long n) {
 
 bool misaligned(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 != 0;
+}
+
+template <bool COUNT>
+void img_grad_kernel_launch(dim3 grid, cudaStream_t s, const float* ix,
+                            const float* iy, const float* g, float* grad,
+                            int B, int H, int W, int C, int OH, int OW,
+                            int tiles_x, unsigned long long* counts) {
+  if (C == 3) {
+    band_warp_img_grad_kernel<3, COUNT><<<grid, kImgThreads, 0, s>>>(
+        ix, iy, g, grad, B, H, W, C, OH, OW, tiles_x, counts);
+  } else {
+    band_warp_img_grad_kernel<0, COUNT><<<grid, kImgThreads, 0, s>>>(
+        ix, iy, g, grad, B, H, W, C, OH, OW, tiles_x, counts);
+  }
 }
 
 }  // namespace
@@ -411,25 +657,43 @@ int band_warp_bwd_launch(const float* img, const float* ix, const float* iy,
 }
 
 // K4: ix, iy (B, OH, OW) and the cotangent g (B, OH, OW, C) -> grad
-// (B, H, W, C), which this function zeroes and then accumulates into.
+// (B, H, W, C), which this function zeroes and then accumulates into;
+// float32, contiguous, grad 16-byte aligned.  Refuses OH * OW or H * W of
+// 2^31 or more (a tap's index y * W + x is an int), and H or W of 2^23 or
+// more (a block's sum of 256 columns or rows is an int).  counts, where
+// not null, is zeroed and receives the kernel's three counts (taps of
+// nonzero weight, those spilled, window floats) from its counting build.
 int band_warp_img_grad_launch(const float* ix, const float* iy,
                               const float* g, float* grad, int H, int W,
-                              int C, long long per_image, long long n,
-                              void* stream) {
-  if (bad_shape(H, W, C, per_image, n)) return cudaErrorInvalidValue;
+                              int C, int B, int OH, int OW,
+                              unsigned long long* counts, void* stream) {
+  if (H <= 0 || W <= 0 || C <= 0 || B < 0 || OH < 0 || OW < 0 ||
+      H >= (1 << 23) || W >= (1 << 23) ||
+      static_cast<long long>(H) * W >= (1LL << 31) ||
+      static_cast<long long>(OH) * OW >= (1LL << 31) - kImgThreads ||
+      misaligned(grad))
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long B = n / per_image;
   const cudaError_t zeroed = cudaMemsetAsync(
       grad, 0, static_cast<size_t>(B) * H * W * C * sizeof(float), s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  if (n == 0) return 0;
-  const int blocks = static_cast<int>(blocks_for(n));
-  if (C == 3) {
-    band_warp_img_grad_kernel<3><<<blocks, kThreads, 0, s>>>(
-        ix, iy, g, grad, H, W, C, per_image, n);
+  if (counts) {
+    const cudaError_t counted =
+        cudaMemsetAsync(counts, 0, 3 * sizeof(unsigned long long), s);
+    if (counted != cudaSuccess) return static_cast<int>(counted);
+  }
+  if (B == 0 || OH == 0 || OW == 0) return 0;
+  const int tiles_x = (OW + kTileX - 1) / kTileX;
+  const long long tiles =
+      static_cast<long long>(tiles_x) * ((OH + kTileY - 1) / kTileY);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(B < 65535 ? B : 65535));
+  if (counts) {
+    img_grad_kernel_launch<true>(grid, s, ix, iy, g, grad, B, H, W, C, OH,
+                                 OW, tiles_x, counts);
   } else {
-    band_warp_img_grad_kernel<0><<<blocks, kThreads, 0, s>>>(
-        ix, iy, g, grad, H, W, C, per_image, n);
+    img_grad_kernel_launch<false>(grid, s, ix, iy, g, grad, B, H, W, C, OH,
+                                  OW, tiles_x, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,9 @@ batch size.  The polar preprocess is the registered operator
 ``polardepth_tpu::polar_preprocess`` (ops/polar_preprocess.py), one node of
 the graph: on the card it launches csrc/polar_preprocess.cu.  So loading a
 program needs that operator registered, which importing this module (or
-``polardepth_tpu_torch.ops.polar_preprocess``) does.
+``polardepth_tpu_torch.ops.polar_preprocess``) does.  ``load_module`` runs
+the loaded program under the port's float32 (utils/precision.py), as
+``Predictor`` runs the model.
 
   python -m polardepth_tpu_torch export --weights <step dir> --out model.pt2
 """
@@ -28,6 +30,7 @@ from polardepth_tpu_torch.config import Config
 from polardepth_tpu_torch.train.losses import preprocess_batch
 from polardepth_tpu_torch.train.trainer import (
     _forward_depth, build_model, takes_pol)
+from polardepth_tpu_torch.utils.precision import float32
 
 
 class DepthProgram(nn.Module):
@@ -48,6 +51,7 @@ class DepthProgram(nn.Module):
                               preprocess_batch(batch, self.cfg))
 
 
+@float32()
 def make_export(cfg: Config, state_dict: dict, batch: int | None = None,
                 device="cuda") -> torch.export.ExportedProgram:
     """Export cfg's model with the weights of state_dict on device.
@@ -109,9 +113,28 @@ def save_artifact(program: torch.export.ExportedProgram, path: str,
 
 
 def load_artifact(path: str) -> torch.export.ExportedProgram:
-    """Load a saved program; ``.module()(color, pol)`` runs it on the
-    device it was exported for."""
+    """Load a saved program; ``load_module`` gives the module that serves
+    it."""
     return torch.export.load(path)
+
+
+class Float32Module(nn.Module):
+    """A loaded program's module, each call under ``float32()``: the graph
+    reads torch's TF32 flags when it runs, not when it was exported."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, *args):
+        with float32():
+            return self.module(*args)
+
+
+def load_module(path: str) -> Float32Module:
+    """Load a saved program as a module: ``load_module(path)(color, pol)``
+    runs it on the device it was exported for, in float32."""
+    return Float32Module(load_artifact(path).module())
 
 
 def preprocess_nodes(program: torch.export.ExportedProgram) -> int:

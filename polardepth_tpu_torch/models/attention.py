@@ -9,8 +9,9 @@ encoding's ``temp_bug_fix=False`` branch have no caller in either package
 and are not ported.  Public functions take the JAX package's channels-last layout
 (B, H, W, C) and tokens as (B, L, C).  The products are einsums, as in the
 JAX package, which leaves them to XLA outside any Pallas kernel; here they
-are torch matrix products, which follow
-``torch.backends.cuda.matmul.allow_tf32``.
+are torch matrix products in float32: the port's entry points turn TF32
+off around them (utils/precision.py), whatever the caller's
+``torch.backends.cuda.matmul.allow_tf32`` says.
 
 Submodules carry the flax names of the JAX modules' parameters, its
 auto-names included (``Dense_0``, ``LayerNorm_1``), so that

@@ -178,16 +178,41 @@ def band_warp_bwd(img, ix, iy, g):
 
 def band_warp_img_grad(img, ix, iy, g) -> torch.Tensor:
     """K4: as ``band_warp_bwd`` -> the image's gradient (B, H, W, C).  On the
-    card the sums are atomic, so their order, and the last bits, change from
-    run to run."""
+    card the sums are formed in shared memory and with atomics, so their
+    order, and the last bits, change from run to run."""
     device = _check(img, ix, iy, g)
     if device.type == "cpu":
         return band_warp_img_grad_plain(img, ix, iy, g)
-    _, h, w, c = img.shape
+    return _img_grad(img, ix, iy, g, None)
+
+
+IMG_GRAD_COUNTS = ("taps", "spilled", "window_floats")
+
+
+def band_warp_img_grad_counted(img, ix, iy, g):
+    """K4's counting build, for measurement: as ``band_warp_img_grad`` ->
+    (grad, counts), counts {"taps": taps of nonzero weight, "spilled": those
+    of them that went past the block's window to device memory,
+    "window_floats": the floats of the windows opened}.  Card only: a
+    count of the kernel's routes has no plain version, so a CPU tensor
+    raises."""
+    device = _check(img, ix, iy, g)
+    if device.type != "cuda":
+        raise ValueError("band_warp_img_grad_counted counts K4's routes on "
+                         "the card; it takes CUDA tensors")
+    counts = torch.empty(len(IMG_GRAD_COUNTS), dtype=torch.int64,
+                         device=device)
+    grad = _img_grad(img, ix, iy, g, counts)
+    return grad, dict(zip(IMG_GRAD_COUNTS, counts.tolist()))
+
+
+def _img_grad(img, ix, iy, g, counts):
+    b, h, w, c = img.shape
     grad = torch.empty_like(img)
     _launch("band_warp_img_grad_launch", ix.data_ptr(), iy.data_ptr(),
-            g.data_ptr(), grad.data_ptr(), h, w, c, ix.shape[1] * ix.shape[2],
-            ix.numel(), device=device)
+            g.data_ptr(), grad.data_ptr(), h, w, c, b, ix.shape[1],
+            ix.shape[2], None if counts is None else counts.data_ptr(),
+            device=img.device)
     build.launch_counts["band_warp_img_grad"] += 1
     return grad
 

@@ -47,7 +47,7 @@ SIGNATURES = {
         ("band_warp_bwd_launch", _I,
          (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _P)),
         ("band_warp_img_grad_launch", _I,
-         (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P)),
+         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
         _ERROR_STRING,
     ),
 }

@@ -32,6 +32,7 @@ from polardepth_tpu_torch.train.pretrained import maybe_apply_pretrained
 from polardepth_tpu_torch.train.selfsup import to_device
 from polardepth_tpu_torch.train.state import TrainState, create_train_state
 from polardepth_tpu_torch.train.trainer import step_seed
+from polardepth_tpu_torch.utils.precision import float32
 
 # the batch keys each step reads (the rest stay on the host)
 STEP_KEYS = ("color_frames", "pol", "K", "inv_K", "depth", "rel_poses")
@@ -105,6 +106,7 @@ class AltTrainer:
                                         self.cfg.max_depth)
             return accumulate_on_device(acc, metrics)
 
+    @float32()
     def evaluate(self, batches) -> dict:
         """The per-material table through the infer step; one host fetch
         at the end."""
@@ -136,6 +138,7 @@ class AltTrainer:
         self.trackers = tuple(torch.as_tensor(t, dtype=torch.float32)
                               .to(self.device) for t in extra["trackers"])
 
+    @float32()
     def fit(self, train_batches_fn, eval_batches_fn=None,
             num_epochs: Optional[int] = None,
             checkpoint_dir: Optional[str] = None, writer=None,

@@ -48,6 +48,7 @@ from polardepth_tpu_torch.ops.warp import grid_sample
 from polardepth_tpu_torch.train.losses import (
     color_pyramid, smoothness_term, supervised_scale_terms)
 from polardepth_tpu_torch.train.state import TrainState, apply_gradients
+from polardepth_tpu_torch.utils.precision import float32
 
 
 def color_jitter_frames(frames: torch.Tensor, factors: dict) -> torch.Tensor:
@@ -463,6 +464,7 @@ def make_selfsup_train_step(model: SelfSupModel, cfg: Config):
     cfg.validate()
     needs_pol = cfg.augment_xolp or cfg.augment_normals
 
+    @float32()
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None, *,
              jitter: Optional[dict] = None,
@@ -517,6 +519,7 @@ def make_selfsup_infer_step(model: SelfSupModel, cfg: Config):
     needs_pol = cfg.augment_xolp or cfg.augment_normals
     model.eval()
 
+    @float32()
     def step(batch: dict) -> torch.Tensor:
         batch = to_device(batch, model_device(model))
         with torch.inference_mode():

@@ -42,6 +42,7 @@ from polardepth_tpu_torch.train.selfsup import (
     SelfSupModel, _reduce_frames, draw_identity_noise, generate_images_pred,
     model_device, preprocess_multiframe, selfsup_losses, to_device)
 from polardepth_tpu_torch.train.state import TrainState, apply_gradients
+from polardepth_tpu_torch.utils.precision import float32
 
 
 class StudentModel(nn.Module):
@@ -259,6 +260,7 @@ def make_student_train_step(model: StudentModel, cfg: Config,
     cfg.validate()
     needs_pol = cfg.augment_xolp or cfg.augment_normals
 
+    @float32()
     def step(state: TrainState, trackers, batch: dict,
              generator: Optional[torch.Generator] = None, *,
              jitter: Optional[dict] = None,
@@ -340,6 +342,7 @@ def make_student_infer_step(model: StudentModel, cfg: Config):
     needs_pol = cfg.augment_xolp or cfg.augment_normals
     model.eval()
 
+    @float32()
     def step(trackers, batch: dict) -> torch.Tensor:
         model.eval()
         batch = to_device(batch, model_device(model))

@@ -9,7 +9,8 @@ place; the eval and infer steps run it in eval mode under
 ``torch.inference_mode``.  The JAX package's multi-step train call
 (``lax.scan`` over stacked batches) is a plain loop here, its scanned eval
 call one batch after another, and its mesh placement one copy to the
-model's device.
+model's device.  The steps and the public methods of ``Trainer`` and
+``Predictor`` compute in float32, TF32 off (utils/precision.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from polardepth_tpu_torch.train.pretrained import maybe_apply_pretrained
 from polardepth_tpu_torch.train.selfsup import model_device, to_device
 from polardepth_tpu_torch.train.state import (
     TrainState, apply_gradients, create_train_state)
+from polardepth_tpu_torch.utils.precision import float32
 
 TRAIN_BATCH_KEYS = ("color", "pol", "depth", "K")
 EVAL_BATCH_KEYS = ("color", "pol", "depth_gt", "mask")
@@ -102,6 +104,7 @@ def make_train_step(model: PolarDepthNet, cfg: Config):
     cfg.validate()
     needs_pol = cfg.augment_xolp or cfg.augment_normals
 
+    @float32()
     def step(state: TrainState, batch: dict,
              generator: torch.Generator | None = None, *,
              jitter: dict | None = None,
@@ -174,6 +177,7 @@ def make_eval_step(model: PolarDepthNet, cfg: Config):
     the accumulator on the device (eval/evaluation.py).  Puts the model in
     eval mode."""
 
+    @float32()
     def step(batch: dict, acc: dict) -> dict:
         model.eval()
         with torch.inference_mode():
@@ -191,6 +195,7 @@ def make_infer_step(model: PolarDepthNet, cfg: Config):
     Puts the model in eval mode, now and at each call."""
     model.eval()
 
+    @float32()
     def step(batch: dict) -> torch.Tensor:
         model.eval()
         with torch.inference_mode():
@@ -297,6 +302,7 @@ class Trainer:
         self.counts["eval_batches"] += 1
         return self._eval_step(self._to_device(batch, EVAL_BATCH_KEYS), acc)
 
+    @float32()
     def evaluate(self, batches: Iterable[dict]) -> dict:
         """The per-material metric table over batches (reference
         Trainer.test / Evaluation.test).  The sums accumulate on the device;
@@ -308,12 +314,14 @@ class Trainer:
         self.log(format_table(results))
         return results
 
+    @float32()
     def predict(self, batch: dict) -> np.ndarray:
         """Depth (B, H, W, 1) of a host batch, as numpy."""
         self.counts["predict_batches"] += 1
         return self._infer_step(
             self._to_device(batch, EVAL_BATCH_KEYS)).cpu().numpy()
 
+    @float32()
     def fit(self, train_batches_fn, eval_batches_fn=None,
             num_epochs: Optional[int] = None,
             checkpoint_dir: Optional[str] = None, writer=None, save_every_steps: Optional[int] = None) -> dict:
@@ -451,6 +459,7 @@ class Predictor:
         self._keys = ("color", "pol") if takes_pol(cfg) else ("color",)
         self._step = make_infer_step(self.model, cfg)
 
+    @float32()
     def predict(self, batch: dict) -> np.ndarray:
         """{"color": (B, H, W, 3) uint8, "pol": (B, H, W, 4) uint8} ->
         depth (B, H, W, 1) float32 in [min_depth, max_depth]."""

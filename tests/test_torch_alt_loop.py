@@ -247,8 +247,6 @@ def test_student_on_the_card_matches_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from polardepth_tpu_torch.ops import build
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _cfg(height=64, width=96, num_depth_bins=96, dropout_rate=0.0)
     data, spe = _data(cfg, scenes=2)
     batch = next(data())

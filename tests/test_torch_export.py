@@ -21,7 +21,7 @@ import torch
 import chip_smoke
 from polardepth_tpu_torch import cli, config
 from polardepth_tpu_torch.eval.export import (
-    load_artifact, make_export, preprocess_nodes, save_artifact)
+    load_artifact, load_module, make_export, preprocess_nodes, save_artifact)
 from polardepth_tpu_torch.models.convert import jax_from_state_dict
 from polardepth_tpu_torch.ops import build, fresnel, resize
 from polardepth_tpu_torch.train.trainer import Predictor, takes_pol
@@ -130,7 +130,7 @@ def test_cli_export_and_its_refusals(tmp_path, capsys):
     out = str(tmp_path / "m" / "model.pt2")
     cli.main(["export", *flags, "--out", out, "--batch", "2"])
     assert "wrote" in capsys.readouterr().out
-    loaded = load_artifact(out).module()
+    loaded = load_module(out)
     depth = loaded(torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
                    torch.zeros(2, 32, 32, 4, dtype=torch.uint8))
     assert depth.shape == (2, 32, 32, 1) and not depth.requires_grad
@@ -144,13 +144,11 @@ def test_cli_export_and_its_refusals(tmp_path, capsys):
 def test_loaded_program_launches_k1_on_the_card(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = config.PUBLISHED.replace(height=H, width=W)
     sd = chip_smoke.seeded_state_dict(cfg, 0)
     path = str(tmp_path / "model.pt2")
     save_artifact(make_export(cfg, sd, device="cuda"), path, cfg)
-    loaded = load_artifact(path).module()
+    loaded = load_module(path)
     predictor = Predictor(cfg, sd, device="cuda")
     for b in (2, 3):
         color, pol = _inputs(b, b, cfg)

@@ -8,9 +8,12 @@ preprocess kernel are the JAX package's own for the TPU kernel
 5e-5 on the priors.  The band-warp kernels K2 and K3: 1e-6 absolute on the
 forward (images in [0, 1]), 1e-5 of each one's max abs on dix and diy.
 K4 (the image gradient): each pixel within 2 (n - 1) 2^-24 times the sum
-of the magnitudes of its n contributions (the same products, summed by
-atomics in another order).  Each test also holds the launch counts: one
-per kernel call.
+of the magnitudes of its n contributions (the same products, summed in
+shared memory and by atomics in another order), on the main grids and on
+edge cases of its tiles, windows and spills.  Each test also holds the
+launch counts: one per kernel call.  K4's counting build (its spill
+share) is held on the card to the same limit and to the tap count of
+``chip_smoke.img_grad_live_taps``, which is checked on the CPU.
 """
 
 import sys
@@ -208,15 +211,19 @@ def test_band_warp_kernels_at_other_shapes(card, c, b, h, w, oh):
         WARP_GRAD_RTOL * float(diy_p.abs().max())
 
 
-def _img_grad_limit(img, ix, iy, g):
-    """chip_smoke.py's per-pixel limit of K4 against its plain version."""
+def _chip_smoke():
     root = str(Path(__file__).resolve().parent.parent)
     sys.path.insert(0, root)
     try:
         import chip_smoke
     finally:
         sys.path.remove(root)
-    return chip_smoke.img_grad_limit(img, ix, iy, g)[0]
+    return chip_smoke
+
+
+def _img_grad_limit(img, ix, iy, g):
+    """chip_smoke.py's per-pixel limit of K4 against its plain version."""
+    return _chip_smoke().img_grad_limit(img, ix, iy, g)[0]
 
 
 @pytest.mark.gpu
@@ -242,6 +249,120 @@ def test_band_warp_img_grad_kernel_matches_plain_version(card, c, kind):
     assert float(plain.abs().max()) > 0
     for got in (grad, again):
         assert bool(((got - plain).abs() <= limit).all())
+
+
+def _img_grad_case(kind):
+    """(B, H, W, C, ix, iy) of K4's edge cases: coordinates in the image,
+    as the band's clamp leaves them, on the CPU."""
+    gen = torch.Generator().manual_seed(11)
+    shapes = {"batch 1": (1, 64, 96, 3, 64, 96),
+              "batch 3": (3, 64, 96, 3, 64, 96),
+              "ragged": (2, 29, 37, 3, 13, 50),
+              "c 1": (2, 64, 96, 1, 64, 96),
+              "c 5": (2, 64, 96, 5, 64, 96),
+              "one border pixel": (2, 40, 70, 3, 40, 70),
+              "spread and clamped": (2, 40, 300, 3, 16, 64),
+              "last row and column": (2, 33, 41, 3, 33, 41),
+              "output larger": (2, 20, 30, 3, 70, 130),
+              "output smaller": (2, 90, 140, 3, 9, 17),
+              "integer": (2, 64, 96, 3, 64, 96),
+              "no window": (1, 6, 7, 7000, 9, 11)}
+    b, h, w, c, oh, ow = shapes[kind]
+    ys, xs = torch.meshgrid(torch.linspace(0, h - 1, oh),
+                            torch.linspace(0, w - 1, ow), indexing="ij")
+    ix, iy = xs.expand(b, oh, ow).clone(), ys.expand(b, oh, ow).clone()
+    ix += torch.rand(b, oh, ow, generator=gen) - 0.5
+    iy += torch.rand(b, oh, ow, generator=gen) - 0.5
+    if kind == "one border pixel":        # every pixel onto one tap
+        ix.fill_(w - 1)
+        iy.fill_(h - 1)
+    elif kind == "spread and clamped":    # half over the image, half onto
+        ix = torch.rand(b, oh, ow, generator=gen) * (w - 1)   # one border
+        iy = torch.rand(b, oh, ow, generator=gen) * (h - 1)   # pixel
+        ix[..., 1::2] = w - 1
+        iy[..., 1::2] = h - 1
+    elif kind == "last row and column":   # taps at x = W-1 and y = H-1
+        ix[..., ::3] = w - 1
+        iy[:, ::2] = h - 1
+        ix[..., 1::3] = w - 1.25
+        iy[:, 1::4] = h - 1.75
+    elif kind == "integer":               # fx = 0 and fy = 0 exactly
+        ix, iy = ix.round(), iy.round()
+    ix, iy = ix.clamp(0, w - 1), iy.clamp(0, h - 1)
+    return b, h, w, c, ix, iy
+
+
+@pytest.mark.parametrize("kind,per_pixel", [
+    ("integer", 1), ("integer columns", 2), ("integer rows", 2),
+    ("fractional", 4)])
+def test_img_grad_live_taps_on_the_cpu(kind, per_pixel):
+    """chip_smoke's count of K4's taps of nonzero weight: a pixel at integer
+    coordinates has one, one integer coordinate two, none four."""
+    b, h, w, c, ix, iy = _img_grad_case("batch 3")
+    ix = (ix.floor() + 0.5).clamp(max=w - 1.5)
+    iy = (iy.floor() + 0.25).clamp(max=h - 1.75)
+    if kind in ("integer", "integer columns"):
+        ix = ix.floor()
+    if kind in ("integer", "integer rows"):
+        iy = iy.floor()
+    assert _chip_smoke().img_grad_live_taps(ix, iy) == per_pixel * ix.numel()
+
+
+def test_k4_counting_build_refuses_cpu_tensors():
+    """The spill count has no plain version: a CPU tensor raises."""
+    b, h, w, c, ix, iy = _img_grad_case("batch 1")
+    img = torch.zeros(b, h, w, c)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        band_warp.band_warp_img_grad_counted(img, ix, iy,
+                                             torch.ones(*ix.shape, c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["batch 1", "batch 3", "ragged", "c 1",
+                                  "c 5", "one border pixel",
+                                  "spread and clamped",
+                                  "last row and column", "output larger",
+                                  "output smaller", "integer", "no window"])
+def test_band_warp_img_grad_kernel_edge_cases(card, kind):
+    """K4 against its plain version, each pixel within its limit, on tiles
+    cut by the output's edges, batches of 1 and 3, its run-time channel
+    counts, taps clamped onto one pixel (inside the window: shared-memory
+    atomics on one cell) or spread wider than the window with every other
+    lane clamped onto one border pixel (the spill route, lanes combined),
+    taps at x = W-1 and y = H-1 (x1 = x0, y1 = y0), outputs larger and
+    smaller than the source, integer coordinates (zero weights) and a C
+    for which no window fits (every tap spills)."""
+    b, h, w, c, ix, iy = _img_grad_case(kind)
+    gen = torch.Generator().manual_seed(12)
+    img = torch.zeros(b, h, w, c, device=card)
+    g = torch.randn(*ix.shape, c, generator=gen).to(card)
+    ix, iy = ix.to(card), iy.to(card)
+    before = build.launch_counts["band_warp_img_grad"]
+    grad = band_warp.band_warp_img_grad(img, ix, iy, g)
+    counted, n = band_warp.band_warp_img_grad_counted(img, ix, iy, g)
+    torch.cuda.synchronize()
+    assert build.launch_counts["band_warp_img_grad"] == before + 2
+    plain = band_warp.band_warp_img_grad_plain(img, ix, iy, g)
+    limit = _img_grad_limit(img, ix, iy, g)
+    assert float(plain.abs().max()) > 0
+    for got in (grad, counted):
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - plain).abs() <= limit).all())
+        if kind == "integer":
+            assert bool((got[plain == 0] == 0).all())
+    # the share of taps that spill, counted by the kernel: a smaller output
+    # spreads its tiles' taps wider than a window
+    assert n["taps"] == _chip_smoke().img_grad_live_taps(ix, iy)
+    spill = n["spilled"] / n["taps"]
+    assert {"spread and clamped": spill > 0.25, "output smaller": spill > 0,
+            "no window": spill == 1.0}.get(kind, spill == 0.0)
+    # a C above the window's floats opens none; taps on one pixel open a
+    # window of one cell a tile
+    tiles = b * -(-ix.shape[1] // 8) * -(-ix.shape[2] // 32)
+    if kind == "no window":
+        assert n["window_floats"] == 0
+    elif kind == "one border pixel":
+        assert n["window_floats"] == tiles * c
 
 
 @pytest.mark.gpu

@@ -336,8 +336,6 @@ def test_chip_smoke_device_idle_from_a_trace(tmp_path):
 def test_trainer_on_the_card_matches_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _cfg(height=64, width=96, dropout_rate=0.0)
     batch = SyntheticHammer(64, 96, seed=3).batch(2)
     tables = []
